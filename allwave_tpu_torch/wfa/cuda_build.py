@@ -1,0 +1,122 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each `csrc/*.cu` source of this package is compiled on first use by
+`nvcc` into a shared library with a plain C interface and loaded with
+ctypes. The library's file name carries a hash of its source and of the
+compile flags, so an edited source is rebuilt and an unchanged one is
+reused. Builds go to `allwave_tpu_torch/_build/` (git-ignored) and are
+only ever made from the sources in this package.
+
+Every C entry point takes raw pointers and the CUDA stream as
+`void*` (declared `c_void_p` here: a 64-bit pointer passed as a plain
+Python int would be cut to 32 bits) and returns `cudaGetLastError()`
+after its launch; `check()` raises on a non-zero code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+
+NVCC_FLAGS = [
+    "-gencode",
+    "arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-shared",
+    "-Xcompiler",
+    "-fPIC",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+#: C signatures: name -> (argtypes, restype), per source
+SIGNATURES = {
+    "dense_forward": {
+        "allwave_dense_forward": (
+            [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+             _P, _P, _P, _P, _P, _P],
+            _I,
+        ),
+        "allwave_cuda_error_string": ([_I], ctypes.c_char_p),
+    },
+    "dense_traceback": {
+        "allwave_dense_traceback": (
+            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+            _I,
+        ),
+    },
+}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+#: seconds spent in nvcc by this process, per source
+build_seconds: Dict[str, float] = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME")
+    if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
+        return os.path.join(home, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if os.path.exists("/usr/local/cuda/bin/nvcc"):
+        return "/usr/local/cuda/bin/nvcc"
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library built from `csrc/<name>.cu`."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is not None:
+            return lib
+        src = os.path.join(CSRC, name + ".cu")
+        with open(src, "rb") as f:
+            digest = hashlib.sha256(
+                f.read() + " ".join(NVCC_FLAGS).encode()
+            ).hexdigest()[:16]
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        so = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+        if not os.path.exists(so):
+            tmp = f"{so}.{os.getpid()}.tmp"
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                capture_output=True,
+                text=True,
+            )
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed on {src} (exit {proc.returncode}):\n"
+                    f"{proc.stdout}\n{proc.stderr}"
+                )
+            os.replace(tmp, so)
+            build_seconds[name] = time.perf_counter() - t0
+        lib = ctypes.CDLL(so)
+        for fn, (argtypes, restype) in SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
+        _libs[name] = lib
+        return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a kernel entry point reported a CUDA error."""
+    if rc != 0:
+        msg = library("dense_forward").allwave_cuda_error_string(rc)
+        raise RuntimeError(
+            f"{what}: CUDA error {rc} ({msg.decode() if msg else '?'})"
+        )
