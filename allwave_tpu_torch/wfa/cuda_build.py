@@ -40,6 +40,7 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 
 #: C signatures: name -> (argtypes, restype), per source
 SIGNATURES = {
@@ -54,6 +55,19 @@ SIGNATURES = {
     "dense_traceback": {
         "allwave_dense_traceback": (
             [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+            _I,
+        ),
+    },
+    "dense_span": {
+        "allwave_dense_span": (
+            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+             _I, _I, _P, _L, _P, _L, _P, _P, _P, _P],
+            _I,
+        ),
+    },
+    "segment_traceback": {
+        "allwave_segment_traceback": (
+            [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P],
             _I,
         ),
     },
@@ -77,35 +91,59 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _library_path(name: str) -> str:
+    src = os.path.join(CSRC, name + ".cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(
+            f.read() + " ".join(NVCC_FLAGS).encode()
+        ).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+
+
+def _build(names) -> None:
+    """Compile every named source whose library is missing, one nvcc
+    process each, all started together. Call with _lock held."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = []
+    for name in names:
+        so = _library_path(name)
+        if os.path.exists(so):
+            continue
+        src = os.path.join(CSRC, name + ".cu")
+        tmp = f"{so}.{os.getpid()}.tmp"
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+            stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE,
+            text=True,
+        )
+        procs.append((name, src, so, tmp, proc, time.perf_counter()))
+    failed = []
+    for name, src, so, tmp, proc, t0 in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {src} (exit {proc.returncode}):\n{out}\n{err}")
+            continue
+        os.replace(tmp, so)
+        build_seconds[name] = time.perf_counter() - t0
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def build_all() -> None:
+    """Build every kernel library of the package at once."""
+    with _lock:
+        _build(sorted(SIGNATURES))
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded kernel library built from `csrc/<name>.cu`."""
     with _lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib
-        src = os.path.join(CSRC, name + ".cu")
-        with open(src, "rb") as f:
-            digest = hashlib.sha256(
-                f.read() + " ".join(NVCC_FLAGS).encode()
-            ).hexdigest()[:16]
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        so = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
-        if not os.path.exists(so):
-            tmp = f"{so}.{os.getpid()}.tmp"
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                capture_output=True,
-                text=True,
-            )
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed on {src} (exit {proc.returncode}):\n"
-                    f"{proc.stdout}\n{proc.stderr}"
-                )
-            os.replace(tmp, so)
-            build_seconds[name] = time.perf_counter() - t0
-        lib = ctypes.CDLL(so)
+        _build([name])
+        lib = ctypes.CDLL(_library_path(name))
         for fn, (argtypes, restype) in SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = restype

@@ -61,17 +61,17 @@ CHUNK = 32
 @dataclass
 class LaunchCount:
     """Kernel launches through one wrapper, the widest band K any of
-    them ran, and the distinct shapes they ran at: (B, K, l_pad) for
-    the forward, (B, K, l_pad, run_cap) for the traceback."""
+    them ran, and the launches at each distinct shape: (B, K, l_pad)
+    for the forward, (B, K, l_pad, run_cap) for the traceback."""
 
     count: int = 0
     widest_k: int = 0
-    shapes: set = field(default_factory=set)
+    shapes: dict = field(default_factory=dict)
 
     def launched(self, shape: tuple) -> None:
         self.count += 1
         self.widest_k = max(self.widest_k, shape[1])
-        self.shapes.add(shape)
+        self.shapes[shape] = self.shapes.get(shape, 0) + 1
 
     def reset(self) -> None:
         self.count = 0
@@ -107,6 +107,118 @@ def _shift_down(a: torch.Tensor, fill: int) -> torch.Tensor:
     return torch.cat([torch.full_like(a[..., :1], fill), a[..., :-1]], -1)
 
 
+def base_registers(qs, ts, qlens, k0, K: int, l_pad: int, d: int):
+    """The XLA scan's base shift registers at anti-diagonal d (reference:
+    allwave_tpu/wfa/segmented.py _base_registers): the reversed query
+    rq[i] = q[qlen-1-i], and per lane k = k0 + c the bases
+    qb[k] = rq[qlen - ((d - k) >> 1)] and tb[k] = t[((d + k) >> 1) - 1],
+    every index clamped into [0, l_pad)."""
+    i32 = torch.int32
+    dev = qs.device
+    ks = k0[:, None] + torch.arange(K, dtype=i32, device=dev)[None, :]
+    idx = torch.arange(l_pad, dtype=i32, device=dev)[None, :]
+    rev_idx = (qlens[:, None] - 1 - idx).clamp(0, l_pad - 1)
+    rq = torch.gather(qs, 1, rev_idx.long())
+    qi = (qlens[:, None] - ((d - ks) >> 1)).clamp(0, l_pad - 1)
+    ti = (((d + ks) >> 1) - 1).clamp(0, l_pad - 1)
+    return rq, torch.gather(rq, 1, qi.long()), torch.gather(ts, 1, ti.long())
+
+
+def shift_bases(rq, ts, qb, tb, qlens, k0, K: int, l_pad: int, d: int):
+    """Advance the base registers from anti-diagonal d-1 to d: the query
+    register shifts down a lane and takes a new head, the target
+    register shifts up and takes a new tail."""
+    qi_head = (qlens - ((d - k0) >> 1)).clamp(0, l_pad - 1)
+    q_head = torch.gather(rq, 1, qi_head[:, None].long())
+    ti_tail = (((d + k0 + (K - 1)) >> 1) - 1).clamp(0, l_pad - 1)
+    t_tail = torch.gather(ts, 1, ti_tail[:, None].long())
+    return (
+        torch.cat([q_head, qb[:, :-1]], 1),
+        torch.cat([tb[:, 1:], t_tail], 1),
+    )
+
+
+def dp_step(d: int, ks, qlens, tlens, bands, run, qb, tb, pen: Penalties, with_plane: bool):
+    """One anti-diagonal step of the banded Gotoh DP (reference: the
+    scan step of allwave_tpu/wfa/dense.py dense_forward, identical to
+    segmented.dense_span_xla's). bands = (S, I1, D1, I2, D2), each
+    (B, K) int32 at d-1; run: (B, K) int32 match-run band; qb/tb: the
+    base registers at d. Returns (bands at d, run at d, plane row): the
+    row is (B, K) int32 (low byte choice/extend bits, high byte run
+    length) when with_plane, else None, and the run band is then
+    left as it was."""
+    i32 = torch.int32
+    s, i1, d1, i2, d2 = bands
+    v = (d - ks) >> 1
+    h = (d + ks) >> 1
+    parity_ok = ((d - ks) & 1) == 0
+    in_matrix = (v >= 0) & (v <= qlens[:, None]) & (h >= 0) & (h <= tlens[:, None])
+    active = parity_ok & in_matrix
+
+    # gap states read S_{d-1} / gaps_{d-1} at k -+ 1
+    s_km1 = _shift_down(s, INF)
+    s_kp1 = _shift_up(s, INF)
+    i1_ext_v = _shift_down(i1, INF) + pen.e1
+    i1_opn_v = s_km1 + (pen.o1 + pen.e1)
+    i1_new = torch.minimum(i1_opn_v, i1_ext_v)
+    i1_ext = i1_ext_v <= i1_opn_v  # tie -> extend
+    d1_ext_v = _shift_up(d1, INF) + pen.e1
+    d1_opn_v = s_kp1 + (pen.o1 + pen.e1)
+    d1_new = torch.minimum(d1_opn_v, d1_ext_v)
+    d1_ext = d1_ext_v <= d1_opn_v
+    best_gap = torch.minimum(i1_new, d1_new)
+    if pen.two_piece:
+        i2_ext_v = _shift_down(i2, INF) + pen.e2
+        i2_opn_v = s_km1 + (pen.o2 + pen.e2)
+        i2_new = torch.minimum(i2_opn_v, i2_ext_v)
+        i2_ext = i2_ext_v <= i2_opn_v
+        d2_ext_v = _shift_up(d2, INF) + pen.e2
+        d2_opn_v = s_kp1 + (pen.o2 + pen.e2)
+        d2_new = torch.minimum(d2_opn_v, d2_ext_v)
+        d2_ext = d2_ext_v <= d2_opn_v
+        best_gap = torch.minimum(best_gap, torch.minimum(i2_new, d2_new))
+    else:
+        i2_new, d2_new = i2, d2
+        i2_ext = torch.zeros_like(i1_ext)
+        d2_ext = torch.zeros_like(d1_ext)
+
+    # diagonal term reads S_{d-2} at k, which is s[k] by parity
+    is_match = qb == tb
+    diag_ok = (v > 0) & (h > 0)
+    diag = torch.where(diag_ok, s + (~is_match).to(i32) * pen.x, INF)
+    s_new = torch.minimum(diag, best_gap)
+
+    row = None
+    if with_plane:
+        # last write wins: D2 < D1 < I2 < I1 < diag-mismatch
+        choice = torch.zeros_like(s)
+        if pen.two_piece:
+            choice = torch.where(d2_new == s_new, S_D2, choice)
+        choice = torch.where(d1_new == s_new, S_D1, choice)
+        if pen.two_piece:
+            choice = torch.where(i2_new == s_new, S_I2, choice)
+        choice = torch.where(i1_new == s_new, S_I1, choice)
+        choice = torch.where(
+            (diag == s_new) & diag_ok & ~is_match, S_DIAG_MISMATCH, choice
+        )
+        packed = (
+            choice
+            | (i1_ext.to(i32) << 3)
+            | (d1_ext.to(i32) << 4)
+            | (i2_ext.to(i32) << 5)
+            | (d2_ext.to(i32) << 6)
+        )
+        new_run = torch.where(choice == S_DIAG_MATCH, run.clamp(max=254) + 1, 0)
+        row = packed | (new_run << 8)
+        run = torch.where(active, new_run, run)
+
+    new = (s_new, i1_new, d1_new, i2_new, d2_new)
+    bands = tuple(
+        torch.where(active, n.clamp(max=INF), o) for n, o in zip(new, bands)
+    )
+    return bands, run, row
+
+
 def dense_forward_ref(
     qs: torch.Tensor,
     ts: torch.Tensor,
@@ -133,108 +245,19 @@ def dense_forward_ref(
 
     k_end, k0, slack = band_geometry(qlens, tlens, K)
     ks = k0[:, None] + torch.arange(K, dtype=i32, device=dev)[None, :]
+    rq, qb, tb = base_registers(qs, ts, qlens, k0, K, l_pad, 0)
 
-    # reversed query: rq[i] = q[qlen-1-i]
-    idx = torch.arange(l_pad, dtype=i32, device=dev)[None, :]
-    rev_idx = (qlens[:, None] - 1 - idx).clamp(0, l_pad - 1)
-    rq = torch.gather(qs, 1, rev_idx.long())
-    # base shift registers at d = 0:
-    #   qb_d[k] = rq[qlen - ((d - k) >> 1)], tb_d[k] = t[((d + k) >> 1) - 1]
-    qi0 = (qlens[:, None] - ((0 - ks) >> 1)).clamp(0, l_pad - 1)
-    ti0 = (((0 + ks) >> 1) - 1).clamp(0, l_pad - 1)
-    qb = torch.gather(rq, 1, qi0.long())
-    tb = torch.gather(ts, 1, ti0.long())
-
-    s = torch.where(ks == 0, 0, INF).to(i32)
-    i1 = torch.full((B, K), INF, dtype=i32, device=dev)
-    d1 = i1.clone()
-    i2 = i1.clone()
-    d2 = i1.clone()
+    gap = torch.full((B, K), INF, dtype=i32, device=dev)
+    bands = (torch.where(ks == 0, 0, INF).to(i32), gap, gap, gap, gap)
     run = torch.zeros((B, K), dtype=i32, device=dev)  # saturates at 255
 
-    o1e1, e1, x = pen.o1 + pen.e1, pen.e1, pen.x
-    o2e2 = pen.o2 + pen.e2 if pen.two_piece else 0
-    e2 = pen.e2 if pen.two_piece else 0
     D2 = 2 * l_pad
     planes = torch.empty((D2, B, K), dtype=torch.uint16, device=dev)
     for d in range(1, D2 + 1):
-        qi_head = (qlens - ((d - k0) >> 1)).clamp(0, l_pad - 1)
-        q_head = torch.gather(rq, 1, qi_head[:, None].long())
-        qb = torch.cat([q_head, qb[:, :-1]], 1)
-        ti_tail = (((d + k0 + (K - 1)) >> 1) - 1).clamp(0, l_pad - 1)
-        t_tail = torch.gather(ts, 1, ti_tail[:, None].long())
-        tb = torch.cat([tb[:, 1:], t_tail], 1)
-
-        v = (d - ks) >> 1
-        h = (d + ks) >> 1
-        parity_ok = ((d - ks) & 1) == 0
-        in_matrix = (
-            (v >= 0) & (v <= qlens[:, None]) & (h >= 0) & (h <= tlens[:, None])
-        )
-        active = parity_ok & in_matrix
-
-        # gap states read S_{d-1} / gaps_{d-1} at k -+ 1
-        s_km1 = _shift_down(s, INF)
-        s_kp1 = _shift_up(s, INF)
-        i1_ext_v = _shift_down(i1, INF) + e1
-        i1_opn_v = s_km1 + o1e1
-        i1_new = torch.minimum(i1_opn_v, i1_ext_v)
-        i1_ext = i1_ext_v <= i1_opn_v  # tie -> extend
-        d1_ext_v = _shift_up(d1, INF) + e1
-        d1_opn_v = s_kp1 + o1e1
-        d1_new = torch.minimum(d1_opn_v, d1_ext_v)
-        d1_ext = d1_ext_v <= d1_opn_v
-        best_gap = torch.minimum(i1_new, d1_new)
-        if pen.two_piece:
-            i2_ext_v = _shift_down(i2, INF) + e2
-            i2_opn_v = s_km1 + o2e2
-            i2_new = torch.minimum(i2_opn_v, i2_ext_v)
-            i2_ext = i2_ext_v <= i2_opn_v
-            d2_ext_v = _shift_up(d2, INF) + e2
-            d2_opn_v = s_kp1 + o2e2
-            d2_new = torch.minimum(d2_opn_v, d2_ext_v)
-            d2_ext = d2_ext_v <= d2_opn_v
-            best_gap = torch.minimum(best_gap, torch.minimum(i2_new, d2_new))
-        else:
-            i2_new, d2_new = i2, d2
-            i2_ext = torch.zeros_like(i1_ext)
-            d2_ext = torch.zeros_like(d1_ext)
-
-        # diagonal term reads S_{d-2} at k, which is s[k] by parity
-        is_match = qb == tb
-        diag_ok = (v > 0) & (h > 0)
-        diag = torch.where(diag_ok, s + (~is_match).to(i32) * x, INF)
-        s_new = torch.minimum(diag, best_gap)
-
-        # last write wins: D2 < D1 < I2 < I1 < diag-mismatch
-        choice = torch.zeros((B, K), dtype=i32, device=dev)
-        if pen.two_piece:
-            choice = torch.where(d2_new == s_new, S_D2, choice)
-        choice = torch.where(d1_new == s_new, S_D1, choice)
-        if pen.two_piece:
-            choice = torch.where(i2_new == s_new, S_I2, choice)
-        choice = torch.where(i1_new == s_new, S_I1, choice)
-        choice = torch.where(
-            (diag == s_new) & diag_ok & ~is_match, S_DIAG_MISMATCH, choice
-        )
-        packed = (
-            choice
-            | (i1_ext.to(i32) << 3)
-            | (d1_ext.to(i32) << 4)
-            | (i2_ext.to(i32) << 5)
-            | (d2_ext.to(i32) << 6)
-        )
-        new_run = torch.where(
-            choice == S_DIAG_MATCH, run.clamp(max=254) + 1, 0
-        )
-        planes[d - 1] = (packed | (new_run << 8)).to(torch.uint16)
-
-        s = torch.where(active, s_new.clamp(max=INF), s)
-        i1 = torch.where(active, i1_new.clamp(max=INF), i1)
-        d1 = torch.where(active, d1_new.clamp(max=INF), d1)
-        i2 = torch.where(active, i2_new.clamp(max=INF), i2)
-        d2 = torch.where(active, d2_new.clamp(max=INF), d2)
-        run = torch.where(active, new_run, run)
+        qb, tb = shift_bases(rq, ts, qb, tb, qlens, k0, K, l_pad, d)
+        bands, run, row = dp_step(d, ks, qlens, tlens, bands, run, qb, tb, pen, True)
+        planes[d - 1] = row.to(torch.uint16)
+    s = bands[0]
 
     c_end = (k_end - k0).clamp(0, K - 1)
     scores = torch.gather(s, 1, c_end[:, None].long())[:, 0]

@@ -10,9 +10,9 @@ rerun at the full cap 2L+8; pairs that cannot certify at `k_max` fail
 (result None, the failed-pair contract).
 
 Every round runs on the device the aligner was given: the CUDA kernels
-on a GPU, their plain PyTorch versions on the CPU. Pairs longer than
-`dense_max_len` need the segmented and wavefront engines, which are not
-ported yet; UnifiedAligner raises NotImplementedError for them.
+on a GPU, their plain PyTorch versions on the CPU. UnifiedAligner sends
+pairs longer than `dense_max_len` to the segmented (checkpoint-replay)
+engine, wfa/segmented.py.
 """
 
 from __future__ import annotations
@@ -473,10 +473,12 @@ def _pool_pairs(pairs):
 
 class UnifiedAligner:
     """Length-routed dispatcher. Pairs of at most `dense_max_len`
-    bases go to the dense banded engine, bucketed by padded length.
-    Longer pairs need the segmented and wavefront engines
-    (allwave_tpu/wfa/segmented.py, wf_segmented.py), which this package
-    does not have yet: they raise NotImplementedError."""
+    bases go to the one-shot dense banded engine, bucketed by padded
+    length; longer pairs go to the segmented (checkpoint-replay) dense
+    engine, with their hints, as the reference routes them off the TPU.
+    The reference's TPU route tries the wavefront engine first and falls
+    back to the segmented engine per pair (DENSE_FALLBACK); the
+    wavefront engine is not ported yet, so the port has no such leg."""
 
     def __init__(
         self,
@@ -484,11 +486,15 @@ class UnifiedAligner:
         dense_max_len: int = 16384,
         dense_config: Optional[DenseConfig] = None,
         device=None,
+        segmented_config=None,
     ):
+        from .segmented import SegmentedDenseAligner
+
         self.pen = pen
         self.dense_max_len = dense_max_len
         self.dense = DenseBandAligner(pen, dense_config, device)
         self.device = self.dense.device
+        self.segmented = SegmentedDenseAligner(pen, segmented_config, dense=self.dense)
 
     def align_pairs(
         self,
@@ -538,24 +544,20 @@ class UnifiedAligner:
             (len(b) for b in pool_seqs), dtype=np.int64, count=len(pool_seqs)
         )
         max_lens = np.maximum(pool_lens[qidx], pool_lens[tidx])
-        n_long = int((max_lens > self.dense_max_len).sum())
-        if n_long:
-            raise NotImplementedError(
-                f"{n_long} pairs are longer than dense_max_len="
-                f"{self.dense_max_len}: the segmented and wavefront engines "
-                "for long pairs are not ported to PyTorch yet"
-            )
         sigma_arr = (
             np.asarray(sigma_hint, dtype=np.int64)
             if sigma_hint is not None
             else None
         )
+        short_mask = max_lens <= self.dense_max_len
+        long_idx = np.flatnonzero(~short_mask).tolist()
+        short_idx = np.flatnonzero(short_mask)
         # group by padded length (pow2 buckets) to keep sweeps tight
-        ml = np.maximum(max_lens, 4)
+        ml = np.maximum(max_lens[short_idx], 4)
         pads = 1 << np.frexp((ml - 1).astype(np.float64))[1]
         by_pad: Dict[int, List[int]] = {}
         for pad in np.unique(pads).tolist():
-            by_pad[int(pad)] = np.flatnonzero(pads == pad).tolist()
+            by_pad[int(pad)] = short_idx[pads == pad].tolist()
         # coalesce tiny length-buckets into the next larger one: a
         # <256-pair bucket costs a full launch chain but only ~2x the
         # per-pair sweep when merged upward (the dense engine re-derives
@@ -591,6 +593,27 @@ class UnifiedAligner:
                 for i, r in zip(ia.tolist(), out):
                     results[i] = r
                 stats[ia] = st
+            if long_idx:
+                self._align_long(pool_seqs, qidx, tidx, long_idx, sigma_arr, results, stats)
             return (results, stats) if with_stats else results
 
         return _AsyncResult(finish)
+
+    def _align_long(self, pool_seqs, qidx, tidx, long_idx, sigma_arr, results, stats):
+        """Long-pair leg (reference: UnifiedAligner._align_long off the
+        TPU): the segmented dense engine, with the pairs' hints. Its
+        results are per-base cigar arrays even when the short pairs come
+        back as runs. Fills results and stats in place."""
+        from ..core.cigar import batch_cigar_stats
+
+        ia = np.asarray(long_idx, dtype=np.int64)
+        hint = sigma_arr[ia].tolist() if sigma_arr is not None else None
+        out = self.segmented.align_pairs_indexed(
+            pool_seqs, np.asarray(qidx)[ia], np.asarray(tidx)[ia], sigma_hint=hint
+        )
+        st = batch_cigar_stats(
+            [r[1] if r is not None else np.zeros(0, np.uint8) for r in out]
+        )
+        for row, (i, r) in enumerate(zip(long_idx, out)):
+            results[i] = r
+            stats[i] = st[row]

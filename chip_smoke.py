@@ -5,19 +5,31 @@ Run from the repository root on a machine with one NVIDIA Hopper GPU:
 
     python3 chip_smoke.py
 
-It builds the two CUDA kernels of the short-pair main path from the
-sources in this checkout, holds each against its plain PyTorch version
-on the card, then drives the port's main path (the CLI and the
-AllPairAligner) over bench.py's headline data, 128 x 1 kb at 2%
-divergence, all 16,256 directed pairs, and over a 12 kb escalation case.
-Each wrapper records the shapes it launched at; the last phase holds
-both kernels against their plain versions again at every shape the
-main path used. Every kernel is held to its plain version with
-tolerance 0: scores,
-certificates and packed bytes must be equal, because the tie-break
-contract (docs/TIEBREAK.md) leaves no room. Every phase prints its
-result on its own line; any failure exits non-zero. The last two lines are a JSON object with one entry per kernel
-and the device line `{"ok": true, "device": {...}}`.
+It builds the four CUDA kernels from the sources in this checkout (one
+nvcc per source, all at once) and drives the port's two paths:
+
+* the short-pair main path (phases 2-6): the dense forward and
+  traceback kernels against their plain PyTorch versions, the CLI and
+  the AllPairAligner over bench.py's headline data (128 x 1 kb at 2%
+  divergence, all 16,256 directed pairs) and a 12 kb escalation case,
+  then both kernels again at every shape those runs launched;
+* the long-pair path (phases 7-11): the span and segment-traceback
+  kernels of the segmented (checkpoint-replay) engine against their
+  plain versions, on checkpoints the span kernel swept (phases 7-8);
+  bench.py's config 5_100kb (4 x 100 kb at 2%, 12 directed pairs)
+  through the CLI and the AllPairAligner, with a profile (phase 9);
+  4 x 24 kb through both the one-shot dense engine and the segmented
+  engine, which must agree exactly (phase 10); and both kernels again
+  at every shape phase 9 launched (phase 11).
+
+Each wrapper counts its launches by shape; every count is set to 0 just
+before a path is driven and read just after. Every kernel is held to its
+plain version with tolerance 0: scores, certificates, band states, plane
+bytes, walk states and run buffers must be equal, because the tie-break
+contract (docs/TIEBREAK.md) leaves no room. Every phase prints its result
+and its seconds on its own line; any failure exits non-zero. The last
+three lines are the card's name and power limit, a JSON object with one
+entry per kernel, and the device line `{"ok": true, "device": {...}}`.
 
 Without a CUDA device, or without the rest of the repository beside
 it, the script exits non-zero before printing any result. It imports
@@ -158,14 +170,97 @@ def traceback_case(device, B, L, K, seed, div, run_caps, reps):
     return out
 
 
+def span_case(device, B, L, l_pad, K, k_sub, C, seg, seed, div, reps, run_caps=()):
+    """The span kernel against its plain version at one shape, then the
+    segment-traceback kernel against its plain version over that span's
+    planes. The span kernel sweeps the checkpoints of a random batch up
+    to segment `seg`; from there one span of C steps runs with planes
+    and without, at the full band (k_sub None) or on the narrow replay's
+    sub-band around the main diagonal. Walkers enter at the segment's
+    top on the main diagonal and walk it at each run_cap (a tiny cap
+    overflows). Returns (span results, traceback results)."""
+    import numpy as np
+    import torch
+
+    from allwave_tpu_torch.core.scores import parse_scores
+    from allwave_tpu_torch.testing.batches import random_batch
+    from allwave_tpu_torch.wfa import segmented as TS
+    from allwave_tpu_torch.wfa.dense import band_geometry
+    from allwave_tpu_torch.wfa.params import resolve_penalties
+
+    pen = resolve_penalties(parse_scores(SCORES))
+    batch = random_batch(np.random.RandomState(seed), B, L, l_pad, div, min_len=(3 * L) // 4)
+    qs, ts, ql, tl = (torch.from_numpy(a).to(device) for a in batch)
+    _, _, ckpts = TS.dense_sweep_ckpt(qs, ts, ql, tl, pen, K, l_pad, C, n_seg=seg + 1)
+    state = ckpts[:, seg]
+    d_lo = seg * C
+    _, k0, _ = band_geometry(ql, tl, K)
+    c = (-k0).clamp(0, K - 1).to(torch.int32)  # the main diagonal, k = 0
+    narrow = k_sub is not None and k_sub < K
+    c_lo = TS.narrow_offsets(c, K, k_sub) if narrow else None
+    W = k_sub if narrow else K
+    at = f"B={B} l_pad={l_pad} K={K} k_sub={W} d_lo={d_lo} n_steps={C}"
+    args = (qs, ts, ql, tl, pen, K, l_pad, d_lo, C, state)
+    spans, tbs, planes_k = [], [], None
+    for with_planes in (True, False):
+        kw = dict(c_lo=c_lo, k_sub=W if narrow else None)
+        st_k, pl_k = TS.dense_span(*args, with_planes, **kw)
+        (st_p, pl_p), plain_ms = timed_once(lambda: TS.dense_span_ref(*args, with_planes, **kw))
+        check(torch.equal(st_k, st_p), f"span states differ at {at} planes={with_planes}")
+        err = int((st_k - st_p).abs().max())
+        if with_planes:
+            check(torch.equal(pl_k, pl_p), f"span planes differ at {at}")
+            err = max(err, int((pl_k.to(torch.int32) - pl_p.to(torch.int32)).abs().max()))
+            planes_k = pl_k
+        del st_p, pl_p
+        ms = time_ms(lambda: TS.dense_span(*args, with_planes, **kw), reps)
+        cells = B * C * W
+        spans.append({
+            "B": B, "l_pad": l_pad, "K": K, "k_sub": W, "d_lo": d_lo, "n_steps": C,
+            "with_planes": with_planes, "max_abs_err": err, "tolerance": 0,
+            "ms": ms, "plain_ms": plain_ms, "gcells_s": cells / (ms * 1e6),
+            "plain_gcells_s": cells / (plain_ms * 1e6),
+        })
+    for cap in run_caps:
+        walk0 = TS.new_walk(torch.full_like(ql, d_lo + C), c, torch.ones_like(ql, dtype=torch.bool))
+        bufs0 = TS.new_bufs(B, cap, device)
+
+        def fresh():
+            return walk0.clone(), tuple(b.clone() for b in bufs0)
+
+        walk_k, bufs_k = fresh()
+        TS.segment_traceback(planes_k, d_lo, walk_k, bufs_k, l_pad, c_lo=c_lo)
+        walk_p, bufs_p = fresh()
+        _, plain_ms = timed_once(
+            lambda: TS.traceback_segment_ref(planes_k, d_lo, walk_p, bufs_p, c_lo=c_lo)
+        )
+        check(torch.equal(walk_k, walk_p), f"walk states differ at {at} run_cap={cap}")
+        for a, b in zip(bufs_k, bufs_p):
+            check(torch.equal(a, b), f"run buffers differ at {at} run_cap={cap}")
+        err = max(int((walk_k - walk_p).abs().max()),
+                  *(int((a.to(torch.int32) - b.to(torch.int32)).abs().max())
+                    for a, b in zip(bufs_k, bufs_p)))
+        # each timed call walks fresh copies of the entry state (the
+        # copies are a few small kernels of their own)
+        ms = time_ms(lambda: TS.segment_traceback(planes_k, d_lo, *fresh(), l_pad, c_lo=c_lo), reps)
+        tbs.append({
+            "B": B, "l_pad": l_pad, "K": K, "k_sub": W, "n_steps": C, "run_cap": cap,
+            "runs": int(bufs_k[2].sum()), "overflowed": int(bufs_k[3].sum()),
+            "max_abs_err": err, "tolerance": 0, "ms": ms, "plain_ms": plain_ms,
+        })
+    return spans, tbs
+
+
 def _paf_records(path):
     with open(path) as f:
         return [line.rstrip("\n").split("\t") for line in f if line.strip()]
 
 
 def check_alignments(seqs, results, pen, n_sample, seed):
-    """Every result certified and valid; sampled pairs oracle-exact.
-    results: list of AlignmentResult. Returns the number of failed."""
+    """Every result valid and its CIGAR's score the reported one;
+    n_sample pairs oracle-exact (the Python oracle's work grows as s²,
+    so the long path samples none). results: list of AlignmentResult.
+    Returns the number of failed pairs."""
     import numpy as np
 
     from allwave_tpu_torch.core.cigar import validate_cigar
@@ -176,12 +271,17 @@ def check_alignments(seqs, results, pen, n_sample, seed):
     failed = 0
     cigars = []
     for r in results:
-        if r.cigar_runs is None:  # the pipeline returns runs for every success
+        # short pairs come back as runs, long pairs as per-base bytes; a
+        # failed pair has neither
+        if r.cigar_runs is not None:
+            ops, lens = r.cigar_runs
+            cig = np.repeat(np.asarray(ops, np.uint8), np.asarray(lens, np.int64))
+        else:
+            cig = np.asarray(r.cigar_bytes, np.uint8)
+        if cig.size == 0:
             failed += 1
             cigars.append(None)
             continue
-        ops, lens = r.cigar_runs
-        cig = np.repeat(np.asarray(ops, np.uint8), np.asarray(lens, np.int64))
         q = seqs[r.query_idx].seq
         if r.is_reverse:
             q = reverse_complement(q)
@@ -257,7 +357,7 @@ def profile_pipeline(seqs, scores_str):
         elif b > end:
             busy_us += b - end
             end = b
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     forward_ms = sum(v for k, v in by_name.items() if "dense_forward_kernel" in k)
     return {
         "pairs": len(res), "wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
@@ -265,8 +365,17 @@ def profile_pipeline(seqs, scores_str):
         "forward_gcells_s": cells / (forward_ms * 1e6) if forward_ms else None,
         "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms,
         "peak_device_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "device_ms_by_kernel": {k[:60]: v for k, v in top},
+        "device_ms_by_kernel": {_short(k): v for k, v in top},
     }
+
+
+def _short(kernel_name: str) -> str:
+    """A kernel's name without its return type, namespace and argument
+    list: `dense_span_kernel<true, false>`."""
+    name = kernel_name.replace("(anonymous namespace)::", "")
+    if name.startswith("void "):
+        name = name[5:]
+    return name.split("(")[0][:60]
 
 
 def main() -> int:
@@ -283,10 +392,20 @@ def main() -> int:
         print("FAIL: allwave_tpu_torch/ is not beside chip_smoke.py", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    import numpy as np
+
     os.environ["ALLWAVE_PLATFORM"] = "cuda"
     os.makedirs(OUT_DIR, exist_ok=True)
     dev = torch.device("cuda", 0)
     report = {}
+    phase_s = {}
+    t_last = [time.perf_counter()]
+
+    def stamp(phase) -> None:
+        now = time.perf_counter()
+        phase_s[str(phase)] = now - t_last[0]
+        t_last[0] = now
+        print(f"phase {phase} seconds: {phase_s[str(phase)]:.1f}", flush=True)
 
     # -- phase 1: environment and kernel build ---------------------------
     from allwave_tpu_torch.wfa import cuda_build
@@ -300,12 +419,14 @@ def main() -> int:
         [cuda_build._nvcc(), "--version"], capture_output=True, text=True, check=True
     ).stdout.strip().splitlines()[-1]
     t0 = time.perf_counter()
-    cuda_build.library("dense_forward")
-    cuda_build.library("dense_traceback")
+    cuda_build.build_all()
+    for name in cuda_build.SIGNATURES:
+        cuda_build.library(name)
     build_s = time.perf_counter() - t0
     print(f"phase 1 env: torch {torch.__version__} cuda {torch.version.cuda} | "
           f"{nvcc} | {smi} | kernels built in {build_s:.1f} s "
           f"(nvcc: {cuda_build.build_seconds})", flush=True)
+    stamp(1)
 
     # -- phase 2: forward kernel against its plain version ---------------
     fwd = []
@@ -317,6 +438,7 @@ def main() -> int:
     for r in fwd:
         print("phase 2 forward: " + json.dumps(r), flush=True)
     report["forward"] = fwd
+    stamp(2)
 
     # -- phase 3: traceback kernel against its plain version -------------
     tb = traceback_case(dev, B=256, L=1024, K=128, seed=4, div=0.02,
@@ -325,6 +447,7 @@ def main() -> int:
     for r in tb:
         print("phase 3 traceback: " + json.dumps(r), flush=True)
     report["traceback"] = tb
+    stamp(3)
 
     # -- phase 4: the main path on bench.py's headline data ---------------
     from allwave_tpu_torch import cli
@@ -383,6 +506,7 @@ def main() -> int:
     print("phase 4 profile: " + (json.dumps(prof) if prof else
           "device time not measured (the profiler saw no kernels)"), flush=True)
     report["main_path_profile"] = prof
+    stamp(4)
 
     # -- phase 5: escalation, 8 x 12 kb ----------------------------------
     D.forward_launches.reset()
@@ -402,6 +526,7 @@ def main() -> int:
     main_shapes.append((12000, D.forward_launches.shapes.copy(),
                         D.traceback_launches.shapes.copy()))
     print("phase 5 escalation: " + json.dumps(p5), flush=True)
+    stamp(5)
 
     # -- phase 6: both kernels against their plain versions at every
     # (K, l_pad, run_cap) that phases 4 and 5 launched, at the largest
@@ -422,6 +547,155 @@ def main() -> int:
     report["main_path_shapes"] = at_shape
     # the kernel line's times: the headline's widest batch
     head = at_shape[0]
+    stamp(6)
+
+    # -- phase 7: span kernel against its plain version: bands in shared
+    # memory (K = 3072) and in the global scratch (K = 6144), at full
+    # band and on a sub-band, with planes and without
+    from allwave_tpu_torch.wfa import segmented as TS
+
+    C = TS.SegmentedConfig().ckpt_every
+    k_sub_c = -(-(2 * C + 320) // 128) * 128
+    span7, tb8 = [], []
+    for K in (3072, 6144):
+        for k_sub in (None, k_sub_c):
+            sp, tbr = span_case(dev, B=8, L=14000, l_pad=16384, K=K, k_sub=k_sub, C=C,
+                                seg=3, seed=K + (k_sub or 0), div=0.02, reps=3,
+                                run_caps=(4096, 4))
+            span7 += sp
+            tb8 += tbr
+    for r in span7:
+        print("phase 7 span: " + json.dumps(r), flush=True)
+    # -- phase 8: the segment-traceback kernel on those segments' planes
+    check(any(r["overflowed"] > 0 for r in tb8 if r["run_cap"] == 4),
+          "run_cap=4 walks did not overflow")
+    for r in tb8:
+        print("phase 8 segment traceback: " + json.dumps(r), flush=True)
+    report["span"], report["segment_traceback"] = span7, tb8
+    stamp("7-8")  # one helper runs both phases' cases
+
+    # -- phase 9: the long-pair path, bench.py config 5_100kb -------------
+    tc100 = make_test_case(17, 4, 100_000, MutationConfig(0.02, 0.0005, 0.0005))
+    seqs100 = tc100.sequences
+    fasta100 = os.path.join(OUT_DIR, "5_100kb.fa")
+    paf100 = os.path.join(OUT_DIR, "5_100kb.paf")
+    tc100.write_fasta(fasta100)
+    counts = (D.forward_launches, D.traceback_launches, TS.span_launches,
+              TS.segment_traceback_launches)
+    for lc in counts:
+        lc.reset()
+    t0 = time.perf_counter()
+    rc = cli.main(["-i", fasta100, "-p", "none", "-o", paf100, "--no-progress"])
+    torch.cuda.synchronize()
+    cli100_s = time.perf_counter() - t0
+    launches_long = {
+        "dense_span": TS.span_launches.count,
+        "segment_traceback": TS.segment_traceback_launches.count,
+    }
+    span_shapes = dict(TS.span_launches.shapes)
+    tb_shapes = dict(TS.segment_traceback_launches.shapes)
+    widest100 = TS.span_launches.widest_k
+    check(rc == 0, f"cli exit code {rc} on 5_100kb")
+    check(all(v > 0 for v in launches_long.values()),
+          f"the long path did not launch both kernels: {launches_long}")
+    recs = _paf_records(paf100)
+    check(len(recs) == 12, f"{len(recs)} PAF records on 5_100kb, expected 12")
+    by_id = {sq.id: sq.seq for sq in seqs100}
+    empty = 0
+    for f in recs:
+        if not f[13].startswith("cg:Z:") or f[13] == "cg:Z:":
+            empty += 1
+            continue
+        q = by_id[f[0]]
+        if f[4] == "-":
+            q = reverse_complement(q)
+        validate_cigar(cigar_string_to_bytes(f[13][5:]), q, by_id[f[5]])
+    check(empty == 0, f"{empty} failed pairs in the 5_100kb CLI output")
+    res100, warm100_s = run_pipeline(seqs100, SCORES)
+    check(len(res100) == 12, f"{len(res100)} results from the pipeline on 5_100kb")
+    failed100 = check_alignments(seqs100, res100, pen, n_sample=0, seed=7)
+    check(failed100 == 0, f"{failed100} failed pairs on 5_100kb")
+    p9 = {
+        "pairs": len(res100), "failed": failed100, "cli_s": cli100_s, "warm_s": warm100_s,
+        "warm_alignments_per_s": len(res100) / warm100_s, "widest_k": widest100,
+        "launches": launches_long, "dense_forward_launches": D.forward_launches.count,
+        "span_shapes": sorted(span_shapes.items()), "segment_traceback_shapes": sorted(tb_shapes.items()),
+        "scores": sorted(r.score for r in res100),
+    }
+    print("phase 9 long path: " + json.dumps(p9), flush=True)
+    report["long_path"] = p9
+    TS.span_launches.reset()
+    prof100 = profile_pipeline(seqs100, SCORES)
+    if prof100:
+        # DP cells the span kernel computed in the profiled run, by mode
+        for mode, planes in (("sweep", False), ("replay", True)):
+            cells = sum(n * sh[0] * sh[2] * sh[4] for sh, n in TS.span_launches.shapes.items()
+                        if sh[5] == planes)
+            ms = sum(v for k, v in prof100["device_ms_by_kernel"].items()
+                     if k.startswith(f"dense_span_kernel<") and k.endswith(f"{str(planes).lower()}>"))
+            prof100[f"{mode}_cells"] = cells
+            prof100[f"{mode}_device_ms"] = ms
+            prof100[f"{mode}_gcells_s"] = cells / (ms * 1e6) if ms else None
+    print("phase 9 profile: " + (json.dumps(prof100) if prof100 else
+          "device time not measured (the profiler saw no kernels)"), flush=True)
+    report["long_path_profile"] = prof100
+    stamp(9)
+
+    # -- phase 10: exactness at length: the one-shot dense engine and the
+    # segmented engine on 4 x 24 kb at 2% (12 directed pairs)
+    from allwave_tpu_torch.wfa.dense_engine import UnifiedAligner
+
+    tc24 = make_test_case(24, 4, 24_000, MutationConfig(0.02, 0.0005, 0.0005))
+    pairs24 = [(a.seq, b.seq) for a in tc24.sequences for b in tc24.sequences if a is not b]
+    for lc in counts:
+        lc.reset()
+    t0 = time.perf_counter()
+    one = UnifiedAligner(pen, dense_max_len=32768, device=dev).align_pairs(pairs24, with_stats=True)
+    one_s = time.perf_counter() - t0
+    one_k, one_spans = D.forward_launches.widest_k, TS.span_launches.count
+    t0 = time.perf_counter()
+    segd = UnifiedAligner(pen, device=dev).align_pairs(pairs24, with_stats=True)
+    seg_s = time.perf_counter() - t0
+    check(one_spans == 0 and TS.span_launches.count > 0
+          and TS.segment_traceback_launches.count > 0,
+          "phase 10 did not route 24 kb pairs as intended")
+    check(all(r is not None for r in one[0] + segd[0]), "phase 10 has failed pairs")
+    same = [a[0] == b[0] and np.array_equal(a[1], b[1]) for a, b in zip(one[0], segd[0])]
+    check(all(same), f"one-shot and segmented differ on {same.count(False)} of 12 pairs")
+    check(np.array_equal(one[1], segd[1]), "one-shot and segmented stats differ")
+    p10 = {
+        "pairs": len(pairs24), "identical": sum(same), "one_shot_s": one_s,
+        "one_shot_widest_k": one_k, "segmented_s": seg_s,
+        "segmented_widest_k": TS.span_launches.widest_k,
+        "scores": [int(r[0]) for r in segd[0]],
+    }
+    print("phase 10 exactness at length: " + json.dumps(p10), flush=True)
+    report["exactness_24kb"] = p10
+    stamp(10)
+
+    # -- phase 11: both long-path kernels against their plain versions at
+    # every (K, k_sub, l_pad, n_steps) phase 9 launched, at the widest
+    # batch of each, on random ~100 kb pairs
+    widest_b = {}
+    for (B, K, W, l_pad, ns, _), _n in span_shapes.items():
+        widest_b[(K, W, l_pad, ns)] = max(B, widest_b.get((K, W, l_pad, ns), 0))
+    span11, tb11 = [], []
+    for (K, W, l_pad, ns), B in sorted(widest_b.items()):
+        caps = sorted({sh[4] for sh in tb_shapes if sh[1:4] == (W, l_pad, ns)})
+        sp, tbr = span_case(dev, B=B, L=100_000, l_pad=l_pad, K=K,
+                            k_sub=W if W < K else None, C=ns, seg=2,
+                            seed=100 + len(span11), div=0.02, reps=2, run_caps=caps)
+        for r in sp + tbr:
+            print("phase 11 long-path shape: " + json.dumps(r), flush=True)
+        span11 += sp
+        tb11 += tbr
+    check(tb11, "no segment traceback shape of phase 9 was held against its plain version")
+    report["long_path_shapes"] = span11 + tb11
+    stamp(11)
+    # the kernel line's times: the long path's widest full-band sweep
+    # span and its widest band's replay walk
+    sweep = max((r for r in span11 if not r["with_planes"]), key=lambda r: (r["K"], r["k_sub"]))
+    walk = max(tb11, key=lambda r: (r["K"], -r["run_cap"]))
 
     kernels = [
         {
@@ -441,9 +715,26 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in tb + at_shape),
             "ms": head["traceback_ms"], "plain_ms": head["traceback_plain_ms"],
         },
+        {
+            "name": "dense_span", "route": "cuda",
+            "source": "allwave_tpu_torch/csrc/dense_span.cu",
+            "replaces": "allwave_tpu/wfa/pallas_span.py:208 (_span_call)",
+            "launches": launches_long["dense_span"],
+            "max_abs_err": max(r["max_abs_err"] for r in span7 + span11),
+            "ms": sweep["ms"], "plain_ms": sweep["plain_ms"],
+        },
+        {
+            "name": "segment_traceback", "route": "cuda",
+            "source": "allwave_tpu_torch/csrc/segment_traceback.cu",
+            "replaces": "allwave_tpu/wfa/segmented.py:382 (XLA _traceback_core)",
+            "launches": launches_long["segment_traceback"],
+            "max_abs_err": max(r["max_abs_err"] for r in tb8 + tb11),
+            "ms": walk["ms"], "plain_ms": walk["plain_ms"],
+        },
     ]
     with open(os.path.join(OUT_DIR, "report.json"), "w") as f:
-        json.dump({"card": smi, **report, "escalation": p5}, f, indent=1)
+        json.dump({"card": smi, **report, "escalation": p5, "phase_seconds": phase_s},
+                  f, indent=1, default=str)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -156,11 +156,22 @@ def test_unified_length_buckets_match_reference():
     )
 
 
-def test_unified_rejects_long_pairs():
+def test_unified_long_pairs_match_reference():
+    """Pairs above dense_max_len take the segmented engine in both
+    packages: same results and stats, no pair length raises."""
+    from allwave_tpu.wfa.segmented import SegmentedConfig as JSC
+    from allwave_tpu_torch.wfa.segmented import SegmentedConfig as TSC
+
     pen = resolve_penalties(parse_scores("0,5,8,2,24,1"))
-    eng = TE.UnifiedAligner(pen, dense_max_len=100, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        eng.align_pairs(_pairs(11, 2, 150, 0.01))
+    pairs = _pairs(11, 2, 150, 0.01) + _pairs(12, 1, 60, 0.05)
+    j = JE.UnifiedAligner(pen, dense_max_len=100, dense_config=JE.DenseConfig(impl="xla"),
+                          segmented_config=JSC(ckpt_every=64, impl="xla"))
+    t = TE.UnifiedAligner(pen, dense_max_len=100, device="cpu",
+                          segmented_config=TSC(ckpt_every=64))
+    rj, sj = j.align_pairs(pairs, with_stats=True)
+    rt, st = t.align_pairs(pairs, with_stats=True)
+    assert _norm(rt) == _norm(rj) and all(r is not None for r in rt)
+    np.testing.assert_array_equal(st, sj)
 
 
 def test_ops_unpack_lut_matches_reference():

@@ -109,3 +109,104 @@ def test_edge_pairs_match_cpu(cuda_device):
             (r[0], bytes(r[1])) for r in cpu[0]
         ]
         np.testing.assert_array_equal(gpu[1], cpu[1])
+
+
+def _segment_inputs(device, scores_str, B, l_pad, K, C, seed, div):
+    """A random batch and its kernel-made checkpoints."""
+    from allwave_tpu_torch.wfa import segmented as TS
+
+    pen = resolve_penalties(parse_scores(scores_str))
+    qs, ts, ql, tl = (
+        torch.from_numpy(a).to(device)
+        for a in random_batch(np.random.RandomState(seed), B, (7 * l_pad) // 8, l_pad, div,
+                              min_len=(3 * l_pad) // 4)
+    )
+    _, cert, ckpts = TS.dense_sweep_ckpt(qs, ts, ql, tl, pen, K, l_pad, C)
+    return pen, (qs, ts, ql, tl), cert, ckpts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "scores_str,K,k_sub", [("0,5,8,2,24,1", 1024, None), ("0,5,8,2,24,1", 1024, 640),
+                           ("0,1,1,1", 512, None), ("0,5,8,2,24,1", 6144, 896)],
+)
+def test_span_kernel_matches_plain(cuda_device, scores_str, K, k_sub):
+    """States and planes of one span at d_lo > 0, with and without
+    planes, at full band and on a sub-band (K = 6144 keeps the bands in
+    the global scratch)."""
+    from allwave_tpu_torch.wfa import segmented as TS
+
+    l_pad, C = 1024, 128
+    pen, batch, _, ckpts = _segment_inputs(cuda_device, scores_str, 4, l_pad, K, C, K, 0.05)
+    seg = 5
+    c_lo = None
+    if k_sub is not None:
+        c_lo = torch.tensor([0, 128, 256, K - k_sub], dtype=torch.int32, device=cuda_device)
+    n0 = TS.span_launches.count
+    for planes in (True, False):
+        st_k, pl_k = TS.dense_span(*batch, pen, K, l_pad, seg * C, C, ckpts[:, seg], planes,
+                                   c_lo=c_lo, k_sub=k_sub)
+        st_p, pl_p = TS.dense_span_ref(*batch, pen, K, l_pad, seg * C, C, ckpts[:, seg], planes,
+                                       c_lo=c_lo, k_sub=k_sub)
+        torch.cuda.synchronize()
+        assert torch.equal(st_k, st_p)
+        assert (pl_k is None and pl_p is None) or torch.equal(pl_k, pl_p)
+    assert TS.span_launches.count == n0 + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("run_cap,k_sub", [(512, None), (3, None), (512, 640)])
+def test_segment_traceback_kernel_matches_plain(cuda_device, run_cap, k_sub):
+    """Walk state and run buffers after every segment, from the end cell
+    to the origin, over the kernel's planes; run_cap 3 overflows."""
+    from allwave_tpu_torch.wfa import segmented as TS
+    from allwave_tpu_torch.wfa.dense import band_geometry
+
+    l_pad, K, C, B = 1024, 1024, 128, 6
+    pen, batch, cert, ckpts = _segment_inputs(cuda_device, "0,5,8,2,24,1", B, l_pad, K, C, 5, 0.08)
+    ql, tl = batch[2], batch[3]
+    k_end, k0, _ = band_geometry(ql, tl, K)
+    d0 = ql + tl
+    walks = [TS.new_walk(d0, (k_end - k0).clamp(0, K - 1), cert & (d0 > 0)) for _ in range(2)]
+    bufs = [TS.new_bufs(B, run_cap, cuda_device) for _ in range(2)]
+    for seg in range(int(d0.max() - 1) // C, -1, -1):
+        c_lo = TS.narrow_offsets(walks[0][1], K, k_sub) if k_sub else None
+        _, planes = TS.dense_span(*batch, pen, K, l_pad, seg * C, C, ckpts[:, seg], True,
+                                  c_lo=c_lo, k_sub=k_sub)
+        TS.segment_traceback(planes, seg * C, walks[0], bufs[0], l_pad, c_lo=c_lo)
+        TS.traceback_segment_ref(planes, seg * C, walks[1], bufs[1], c_lo=c_lo)
+        torch.cuda.synchronize()
+        assert torch.equal(walks[0], walks[1])
+        for a, b in zip(bufs[0], bufs[1]):
+            assert torch.equal(a, b)
+    assert bool(bufs[0][3].any()) == (run_cap < 8)
+
+
+@pytest.mark.cuda
+def test_long_route_launches_kernels_and_matches_cpu(cuda_device):
+    """UnifiedAligner's long route on the card runs both segmented
+    kernels, the narrow replay included, and gives the CPU results."""
+    from allwave_tpu_torch.wfa import segmented as TS
+    from allwave_tpu_torch.wfa.dense_engine import UnifiedAligner
+
+    pen = resolve_penalties(parse_scores("0,5,8,2,24,1"))
+    rng = np.random.RandomState(22)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    pairs = []
+    for div in (0.01, 0.05, 0.3):
+        q = rng.choice(bases, 600)
+        t = q.copy()
+        mut = rng.rand(t.size) < div
+        t[mut] = rng.choice(bases, mut.sum())
+        pairs.append((q.tobytes(), t.tobytes()))
+    cfg = TS.SegmentedConfig(ckpt_every=64)
+    TS.span_launches.reset()
+    TS.segment_traceback_launches.reset()
+    gpu = UnifiedAligner(pen, dense_max_len=100, device=cuda_device,
+                         segmented_config=cfg).align_pairs(pairs, with_stats=True)
+    assert TS.span_launches.count > 0 and TS.segment_traceback_launches.count > 0
+    assert any(s[2] < s[1] for s in TS.span_launches.shapes)  # narrow replay ran
+    cpu = UnifiedAligner(pen, dense_max_len=100, device="cpu",
+                         segmented_config=cfg).align_pairs(pairs, with_stats=True)
+    assert [(r[0], bytes(r[1])) for r in gpu[0]] == [(r[0], bytes(r[1])) for r in cpu[0]]
+    np.testing.assert_array_equal(gpu[1], cpu[1])
