@@ -71,6 +71,15 @@ SIGNATURES = {
             _I,
         ),
     },
+    "wf_span": {
+        "allwave_wf_span": ([_P] * 5 + [_I] * 24 + [_P] * 9, _I),
+    },
+    "wf_traceback": {
+        "allwave_wf_traceback": (
+            [_P, _I, _I, _I, _P, _I, _P] + [_I] * 17 + [_P] * 5 + [_I, _P],
+            _I,
+        ),
+    },
 }
 
 _lock = threading.Lock()

@@ -11,12 +11,14 @@ rerun at the full cap 2L+8; pairs that cannot certify at `k_max` fail
 
 Every round runs on the device the aligner was given: the CUDA kernels
 on a GPU, their plain PyTorch versions on the CPU. UnifiedAligner sends
-pairs longer than `dense_max_len` to the segmented (checkpoint-replay)
-engine, wfa/segmented.py.
+pairs longer than `dense_max_len` to the wavefront checkpoint-replay
+engine (wfa/wf_segmented.py) or the segmented dense engine
+(wfa/segmented.py).
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -474,11 +476,13 @@ def _pool_pairs(pairs):
 class UnifiedAligner:
     """Length-routed dispatcher. Pairs of at most `dense_max_len`
     bases go to the one-shot dense banded engine, bucketed by padded
-    length; longer pairs go to the segmented (checkpoint-replay) dense
-    engine, with their hints, as the reference routes them off the TPU.
-    The reference's TPU route tries the wavefront engine first and falls
-    back to the segmented engine per pair (DENSE_FALLBACK); the
-    wavefront engine is not ported yet, so the port has no such leg."""
+    length. Longer pairs take the reference's accelerator route
+    (`_align_long`): on a CUDA device hinted pairs go to the wavefront
+    checkpoint-replay engine, which hands back per pair (DENSE_FALLBACK)
+    what its band or score ceilings cannot take; those, the hintless
+    pairs and every long pair on the CPU go to the segmented dense engine
+    with their hints. All three engines share the dense engine's device
+    and sequence pool."""
 
     def __init__(
         self,
@@ -489,12 +493,14 @@ class UnifiedAligner:
         segmented_config=None,
     ):
         from .segmented import SegmentedDenseAligner
+        from .wf_segmented import WavefrontSegmentedAligner
 
         self.pen = pen
         self.dense_max_len = dense_max_len
         self.dense = DenseBandAligner(pen, dense_config, device)
         self.device = self.dense.device
         self.segmented = SegmentedDenseAligner(pen, segmented_config, dense=self.dense)
+        self.wf_segmented = WavefrontSegmentedAligner(pen, dense=self.dense)
 
     def align_pairs(
         self,
@@ -600,17 +606,41 @@ class UnifiedAligner:
         return _AsyncResult(finish)
 
     def _align_long(self, pool_seqs, qidx, tidx, long_idx, sigma_arr, results, stats):
-        """Long-pair leg (reference: UnifiedAligner._align_long off the
-        TPU): the segmented dense engine, with the pairs' hints. Its
-        results are per-base cigar arrays even when the short pairs come
-        back as runs. Fills results and stats in place."""
+        """Long-pair leg (reference: UnifiedAligner._align_long). On a
+        CUDA device hinted pairs go to the wavefront engine first, as the
+        reference sends them to its Pallas engine on the TPU; on the CPU
+        they stay on the segmented dense engine, as the reference keeps
+        them off a non-TPU backend. Hintless pairs stay there too (the
+        wavefront engine would probe its band and score cap by
+        escalation). ALLWAVE_WFSEG=0 or 1 forces the route. Pairs the
+        wavefront engine hands back go to the segmented engine with
+        their hints. Results are per-base cigar arrays even when the
+        short pairs come back as runs. Fills results and stats in
+        place."""
         from ..core.cigar import batch_cigar_stats
+        from .wf_segmented import WavefrontSegmentedAligner as _W
 
         ia = np.asarray(long_idx, dtype=np.int64)
+        qi = np.asarray(qidx)[ia]
+        ti = np.asarray(tidx)[ia]
         hint = sigma_arr[ia].tolist() if sigma_arr is not None else None
-        out = self.segmented.align_pairs_indexed(
-            pool_seqs, np.asarray(qidx)[ia], np.asarray(tidx)[ia], sigma_hint=hint
-        )
+        wfseg = os.environ.get("ALLWAVE_WFSEG")
+        if wfseg is None:
+            use_wf = self.device.type == "cuda" and hint is not None
+        else:
+            use_wf = wfseg == "1"
+        if use_wf:
+            out = self.wf_segmented.align_pairs_indexed(pool_seqs, qi, ti, sigma_hint=hint)
+            fb = [j for j, r in enumerate(out) if r is None or r is _W.DENSE_FALLBACK]
+            if fb:
+                dense_out = self.segmented.align_pairs_indexed(
+                    pool_seqs, qi[fb], ti[fb],
+                    sigma_hint=[hint[j] for j in fb] if hint is not None else None,
+                )
+                for j, r in zip(fb, dense_out):
+                    out[j] = r
+        else:
+            out = self.segmented.align_pairs_indexed(pool_seqs, qi, ti, sigma_hint=hint)
         st = batch_cigar_stats(
             [r[1] if r is not None else np.zeros(0, np.uint8) for r in out]
         )

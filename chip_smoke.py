@@ -5,22 +5,35 @@ Run from the repository root on a machine with one NVIDIA Hopper GPU:
 
     python3 chip_smoke.py
 
-It builds the four CUDA kernels from the sources in this checkout (one
-nvcc per source, all at once) and drives the port's two paths:
+It builds the six CUDA kernels from the sources in this checkout (one
+nvcc per source, all at once) and drives the port's three engines:
 
 * the short-pair main path (phases 2-6): the dense forward and
   traceback kernels against their plain PyTorch versions, the CLI and
   the AllPairAligner over bench.py's headline data (128 x 1 kb at 2%
   divergence, all 16,256 directed pairs) and a 12 kb escalation case,
   then both kernels again at every shape those runs launched;
-* the long-pair path (phases 7-11): the span and segment-traceback
-  kernels of the segmented (checkpoint-replay) engine against their
-  plain versions, on checkpoints the span kernel swept (phases 7-8);
-  bench.py's config 5_100kb (4 x 100 kb at 2%, 12 directed pairs)
-  through the CLI and the AllPairAligner, with a profile (phase 9);
+* the segmented long-pair path (phases 7-11): the span and
+  segment-traceback kernels of the segmented (checkpoint-replay) dense
+  engine against their plain versions, on checkpoints the span kernel
+  swept (phases 7-8); bench.py's config 5_100kb (4 x 100 kb at 2%, 12
+  directed pairs) through the CLI and the AllPairAligner, with a
+  profile: the router sends all 12 pairs to the wavefront engine, whose
+  band ceiling hands every one back to the segmented engine (phase 9);
   4 x 24 kb through both the one-shot dense engine and the segmented
   engine, which must agree exactly (phase 10); and both kernels again
-  at every shape phase 9 launched (phase 11).
+  at every shape phase 9 launched (phase 11);
+* the wavefront long-pair path (phases 12-15): the wavefront span
+  kernel (sweep with ring checkpoints, history replay at full band and
+  on the narrow sub-band) and the window-traceback kernel against their
+  plain versions at small shapes, three penalty sets, an identical, a
+  tlen == l_pad and an infeasible pair, and run buffers that fit and
+  that overflow (phases 12-13); bench.py's config 5b_100kb_lowdiv
+  (8 x 100 kb at 0.25%, 56 directed pairs) through the CLI and the
+  AllPairAligner, with a profile, and the same 56 pairs through the
+  segmented engine, which must give the same bytes (phase 14); and both
+  kernels again at every band phase 14 launched, at its widest batch
+  (phase 15).
 
 Each wrapper counts its launches by shape; every count is set to 0 just
 before a path is driven and read just after. Every kernel is held to its
@@ -251,6 +264,121 @@ def span_case(device, B, L, l_pad, K, k_sub, C, seg, seed, div, reps, run_caps=(
     return spans, tbs
 
 
+def wf_inputs(device, scores_str, l_pad, K, seed, div=0.03):
+    """A seeded wavefront edge-case batch on the card (an identical pair,
+    a pair with tlen == l_pad, an infeasible one, a short one) and its
+    score-0 state."""
+    import numpy as np
+    import torch
+
+    from allwave_tpu_torch.core.scores import parse_scores
+    from allwave_tpu_torch.testing.batches import wavefront_batch
+    from allwave_tpu_torch.wfa import wf_segmented as TW
+    from allwave_tpu_torch.wfa.params import resolve_penalties
+
+    pen = resolve_penalties(parse_scores(scores_str))
+    batch = tuple(torch.from_numpy(a).to(device)
+                  for a in wavefront_batch(np.random.RandomState(seed), l_pad, K, div))
+    return pen, batch, TW.wf_init(*batch, pen, K)
+
+
+def wf_sweep_check(pen, batch, init, K, l_pad, C, n_steps, reps, at):
+    """The sweep kernel against its plain version over n_steps levels:
+    scores, done and every checkpoint slot. Returns (result dict, the
+    kernel's (ckpts, done, scores))."""
+    import torch
+
+    from allwave_tpu_torch.wfa import wf_segmented as TW
+
+    args = (*batch, pen, K, l_pad, 0, n_steps, init.seeds, False)
+    kw = dict(ckpt_every=C, done=init.done0, scores=init.scores0)
+    ck_k, _, d_k, s_k = TW.wf_span(*args, **kw)
+    (ck_p, _, d_p, s_p), plain_ms = timed_once(lambda: TW.wf_span_ref(*args, **kw))
+    check(torch.equal(s_k, s_p) and torch.equal(d_k, d_p), f"sweep scores/done differ at {at}")
+    check(torch.equal(ck_k, ck_p), f"sweep checkpoints differ at {at}")
+    del ck_p
+    ms = time_ms(lambda: TW.wf_span(*args, **kw), reps)
+    B = batch[0].shape[0]
+    return {
+        "mode": "sweep", "B": B, "K": K, "W": K, "l_pad": l_pad, "n_steps": n_steps,
+        "ckpt_every": C, "done": int(d_k.sum()), "max_abs_err": int((s_k - s_p).abs().max()),
+        "tolerance": 0, "ms": ms, "plain_ms": plain_ms,
+    }, (ck_k, d_k, s_k)
+
+
+def wf_hist_check(pen, batch, K, l_pad, C, seg, ring, c_lo, k_sub, reps, at):
+    """A history span from a kernel-made checkpoint slot against its
+    plain version, at full band (c_lo None) or on the sub-band."""
+    import torch
+
+    from allwave_tpu_torch.wfa import wf_segmented as TW
+
+    args = (*batch, pen, K, l_pad, seg * C, C, ring, True)
+    kw = dict(c_lo=c_lo, k_sub=k_sub) if c_lo is not None else {}
+    _, h_k, _, _ = TW.wf_span(*args, **kw)
+    (_, h_p, _, _), plain_ms = timed_once(lambda: TW.wf_span_ref(*args, **kw))
+    check(torch.equal(h_k, h_p), f"history planes differ at {at} narrow={c_lo is not None}")
+    err = int((h_k.to(torch.int64) - h_p.to(torch.int64)).abs().max())
+    ms = time_ms(lambda: TW.wf_span(*args, **kw), reps)
+    W = h_k.shape[3]
+    return {
+        "mode": "history", "B": batch[0].shape[0], "K": K, "W": W, "l_pad": l_pad,
+        "s_lo": seg * C, "n_steps": C, "max_abs_err": err, "tolerance": 0, "ms": ms,
+        "plain_ms": plain_ms, "lane_levels_per_s": batch[0].shape[0] * C * W / (ms * 1e-3),
+    }, h_k
+
+
+def wf_walk_chain(device, pen, batch, init, ck, done, scores, K, l_pad, C, k_sub, run_caps,
+                  reps, n_seg=None):
+    """The window-traceback kernel against its plain version: walkers
+    start at each done pair's end cell and walk back segment by segment
+    (n_seg segments from the top, or all) over history planes the span
+    kernel replays, narrow when K > k_sub; walk state and the four run
+    buffers must be equal after every segment, at each run_cap. The
+    last segment's walk is timed. Returns one result dict per run_cap."""
+    import torch
+
+    from allwave_tpu_torch.wfa import segmented as TS
+    from allwave_tpu_torch.wfa import wf_segmented as TW
+
+    ql, tl = batch[2], batch[3]
+    B = ql.shape[0]
+    top = (int(scores[done].max()) - 1) // C
+    segs = list(range(top, -1, -1))[: n_seg or None]
+    narrow = K > k_sub
+    out = []
+    for cap in run_caps:
+        walk_k = TW.new_walk(torch.where(done, scores, -1), init.c_end, tl, done & (ql + tl > 0))
+        walk_p = walk_k.clone()
+        bufs_k, bufs_p = TW.new_bufs(B, cap, device), TW.new_bufs(B, cap, device)
+        at = f"B={B} K={K} l_pad={l_pad} run_cap={cap}"
+        for seg in segs:
+            c_lo = TS.narrow_offsets(walk_k[1], K, k_sub) if narrow else None
+            _, hist, _, _ = TW.wf_span(*batch, pen, K, l_pad, seg * C, C, ck[seg], True,
+                                       c_lo=c_lo, k_sub=k_sub if narrow else None)
+            entry = (walk_k.clone(), tuple(b.clone() for b in bufs_k))
+            TW.wf_traceback(hist, ck[seg], seg * C, walk_k, bufs_k, pen, c_lo=c_lo)
+            _, plain_ms = timed_once(
+                lambda: TW.traceback_window_ref(hist, ck[seg], seg * C, walk_p, bufs_p, pen, c_lo=c_lo))
+            check(torch.equal(walk_k, walk_p), f"walk states differ at {at} segment {seg}")
+            for a, b in zip(bufs_k, bufs_p):
+                check(torch.equal(a, b), f"run buffers differ at {at} segment {seg}")
+        err = max(int((walk_k - walk_p).abs().max()),
+                  *(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+                    for a, b in zip(bufs_k, bufs_p)))
+        # each timed call walks fresh copies of the last segment's entry state
+        ms = time_ms(lambda: TW.wf_traceback(
+            hist, ck[seg], seg * C, entry[0].clone(), tuple(b.clone() for b in entry[1]),
+            pen, c_lo=c_lo), reps)
+        out.append({
+            "B": B, "K": K, "W": k_sub if narrow else K, "l_pad": l_pad, "n_steps": C,
+            "run_cap": cap, "segments": len(segs), "runs": int(bufs_k[2].sum()),
+            "overflowed": int(bufs_k[3].sum()), "max_abs_err": err, "tolerance": 0,
+            "ms": ms, "plain_ms": plain_ms,
+        })
+    return out
+
+
 def _paf_records(path):
     with open(path) as f:
         return [line.rstrip("\n").split("\t") for line in f if line.strip()]
@@ -357,7 +485,7 @@ def profile_pipeline(seqs, scores_str):
         elif b > end:
             busy_us += b - end
             end = b
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
     forward_ms = sum(v for k, v in by_name.items() if "dense_forward_kernel" in k)
     return {
         "pairs": len(res), "wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
@@ -580,10 +708,14 @@ def main() -> int:
     fasta100 = os.path.join(OUT_DIR, "5_100kb.fa")
     paf100 = os.path.join(OUT_DIR, "5_100kb.paf")
     tc100.write_fasta(fasta100)
+    from allwave_tpu_torch.wfa import wf_segmented as TW
+
     counts = (D.forward_launches, D.traceback_launches, TS.span_launches,
-              TS.segment_traceback_launches)
+              TS.segment_traceback_launches, TW.wf_span_launches, TW.wf_traceback_launches)
     for lc in counts:
         lc.reset()
+    TW.wf_stats.reset()
+    check("ALLWAVE_WFSEG" not in os.environ, "ALLWAVE_WFSEG is set: the router would be forced")
     t0 = time.perf_counter()
     rc = cli.main(["-i", fasta100, "-p", "none", "-o", paf100, "--no-progress"])
     torch.cuda.synchronize()
@@ -598,6 +730,10 @@ def main() -> int:
     check(rc == 0, f"cli exit code {rc} on 5_100kb")
     check(all(v > 0 for v in launches_long.values()),
           f"the long path did not launch both kernels: {launches_long}")
+    # every 5_100kb hint needs a band above the wavefront k_max: all 12
+    # pairs go through the router to the wavefront engine and fall back
+    fallbacks100 = TW.wf_stats.fallbacks
+    check(fallbacks100 == 12, f"{fallbacks100} of 12 pairs fell back from the wavefront engine")
     recs = _paf_records(paf100)
     check(len(recs) == 12, f"{len(recs)} PAF records on 5_100kb, expected 12")
     by_id = {sq.id: sq.seq for sq in seqs100}
@@ -619,6 +755,7 @@ def main() -> int:
         "pairs": len(res100), "failed": failed100, "cli_s": cli100_s, "warm_s": warm100_s,
         "warm_alignments_per_s": len(res100) / warm100_s, "widest_k": widest100,
         "launches": launches_long, "dense_forward_launches": D.forward_launches.count,
+        "wavefront_fallbacks": fallbacks100,
         "span_shapes": sorted(span_shapes.items()), "segment_traceback_shapes": sorted(tb_shapes.items()),
         "scores": sorted(r.score for r in res100),
     }
@@ -697,6 +834,204 @@ def main() -> int:
     sweep = max((r for r in span11 if not r["with_planes"]), key=lambda r: (r["K"], r["k_sub"]))
     walk = max(tb11, key=lambda r: (r["K"], -r["run_cap"]))
 
+    # -- phase 12: the wavefront span kernel against its plain version at
+    # small shapes: the sweep (scores, done, every checkpoint slot) for
+    # three penalty sets, then history spans from a kernel-made
+    # checkpoint at full band and on the narrow sub-band
+    from allwave_tpu_torch.wfa.segmented import narrow_offsets
+
+    wf12, chains = [], []
+    for sc, K, l_pad, C, N in ((SCORES, 256, 2048, 64, 1024), ("0,5,8,2", 256, 2048, 64, 1024),
+                               ("0,1,1,1", 256, 2048, 64, 1024), (SCORES, 2048, 4096, 256, 1024)):
+        k_sub = -(-(2 * C + 320) // 512) * 512
+        pen_c, batch, init = wf_inputs(dev, sc, l_pad, K, seed=K + len(sc), div=0.01)
+        at = f"{sc} K={K} l_pad={l_pad}"
+        r, (ck, done, scores) = wf_sweep_check(pen_c, batch, init, K, l_pad, C, N, 3, at)
+        check(bool(done[3]) and int(scores[3]) == 0 and not bool(done[5]),
+              f"the identical and infeasible pairs are not as built at {at}")
+        wf12.append({"scores": sc, **r})
+        seg = 1
+        wf12.append({"scores": sc, **wf_hist_check(pen_c, batch, K, l_pad, C, seg, ck[seg],
+                                                    None, None, 3, at)[0]})
+        if K > k_sub:
+            c_lo = narrow_offsets(init.c_end, K, k_sub)
+            wf12.append({"scores": sc, **wf_hist_check(pen_c, batch, K, l_pad, C, seg, ck[seg],
+                                                        c_lo, k_sub, 3, at)[0]})
+        if sc == SCORES:
+            chains.append((pen_c, batch, init, ck, done, scores, K, l_pad, C, k_sub))
+    for r in wf12:
+        print("phase 12 wf span: " + json.dumps(r), flush=True)
+    stamp(12)
+
+    # -- phase 13: the window-traceback kernel against its plain version
+    # on history planes the span kernel made, end to origin, at a run_cap
+    # that fits and one that overflows
+    tb13 = []
+    for pen_c, batch, init, ck, done, scores, K, l_pad, C, k_sub in chains:
+        tb13 += wf_walk_chain(dev, pen_c, batch, init, ck, done, scores, K, l_pad, C, k_sub,
+                              (4096, 4), reps=5)
+    check(all(r["overflowed"] > 0 for r in tb13 if r["run_cap"] == 4)
+          and not any(r["overflowed"] for r in tb13 if r["run_cap"] == 4096),
+          "run_cap 4 walks did not all overflow, or run_cap 4096 walks did")
+    for r in tb13:
+        print("phase 13 wf traceback: " + json.dumps(r), flush=True)
+    stamp(13)
+
+    # -- phase 14: bench.py config 5b_100kb_lowdiv (8 x 100 kb at MHC-like
+    # divergence, 56 directed pairs) through the CLI and the
+    # AllPairAligner: the router sends the hinted long pairs to the
+    # wavefront engine
+    tc5b = make_test_case(18, 8, 100_000, MutationConfig(0.0025, 0.0001, 0.0001))
+    seqs5b = tc5b.sequences
+    fasta5b = os.path.join(OUT_DIR, "5b_100kb_lowdiv.fa")
+    paf5b = os.path.join(OUT_DIR, "5b_100kb_lowdiv.paf")
+    tc5b.write_fasta(fasta5b)
+    for lc in counts:
+        lc.reset()
+    TW.wf_stats.reset()
+    t0 = time.perf_counter()
+    rc = cli.main(["-i", fasta5b, "-p", "none", "-o", paf5b, "--no-progress"])
+    torch.cuda.synchronize()
+    cli5b_s = time.perf_counter() - t0
+    launches_wf = {
+        "wf_span": TW.wf_span_launches.count,
+        "wf_traceback": TW.wf_traceback_launches.count,
+    }
+    wf_span_shapes = dict(TW.wf_span_launches.shapes)
+    wf_tb_shapes = dict(TW.wf_traceback_launches.shapes)
+    rounds5b = list(TW.wf_stats.rounds)
+    fallbacks5b = TW.wf_stats.fallbacks
+    check(rc == 0, f"cli exit code {rc} on 5b_100kb_lowdiv")
+    check(all(v > 0 for v in launches_wf.values()),
+          f"the wavefront path did not launch both kernels: {launches_wf}")
+    recs = _paf_records(paf5b)
+    check(len(recs) == 56, f"{len(recs)} PAF records on 5b_100kb_lowdiv, expected 56")
+    by_id = {sq.id: sq.seq for sq in seqs5b}
+    empty = 0
+    for f in recs:
+        if not f[13].startswith("cg:Z:") or f[13] == "cg:Z:":
+            empty += 1
+            continue
+        q = by_id[f[0]]
+        if f[4] == "-":
+            q = reverse_complement(q)
+        validate_cigar(cigar_string_to_bytes(f[13][5:]), q, by_id[f[5]])
+    check(empty == 0, f"{empty} failed pairs in the 5b_100kb_lowdiv CLI output")
+    res5b, warm5b_s = run_pipeline(seqs5b, SCORES)
+    check(len(res5b) == 56, f"{len(res5b)} results from the pipeline on 5b_100kb_lowdiv")
+    failed5b = check_alignments(seqs5b, res5b, pen, n_sample=0, seed=8)
+    check(failed5b == 0, f"{failed5b} failed pairs on 5b_100kb_lowdiv")
+    p14 = {
+        "pairs": len(res5b), "failed": failed5b, "dense_fallbacks": fallbacks5b,
+        "rounds_K_scap_B": rounds5b, "cli_s": cli5b_s, "warm_s": warm5b_s,
+        "warm_alignments_per_s": len(res5b) / warm5b_s, "launches": launches_wf,
+        "segmented_span_launches": TS.span_launches.count,
+        "wf_span_shapes": sorted(wf_span_shapes.items()),
+        "wf_traceback_shapes": sorted(wf_tb_shapes.items()),
+        "scores": sorted(r.score for r in res5b),
+    }
+    print("phase 14 wavefront path: " + json.dumps(p14), flush=True)
+    report["wavefront_path"] = p14
+    TW.wf_stats.reset()
+    prof5b = profile_pipeline(seqs5b, SCORES)
+    if prof5b:
+        by_k = prof5b["device_ms_by_kernel"]
+        for mode, tag, work in (("sweep", "wf_span_kernel<false>", TW.wf_stats.sweep_lane_levels),
+                                ("replay", "wf_span_kernel<true>", TW.wf_stats.replay_lane_levels)):
+            ms = sum(v for k, v in by_k.items() if k.startswith(tag))
+            prof5b[f"{mode}_lane_levels"] = work
+            prof5b[f"{mode}_device_ms"] = ms
+            prof5b[f"{mode}_lane_levels_per_s"] = work / (ms * 1e-3) if ms else None
+        prof5b["walk_device_ms"] = sum(v for k, v in by_k.items() if k.startswith("wf_traceback_kernel"))
+    print("phase 14 profile: " + (json.dumps(prof5b) if prof5b else
+          "device time not measured (the profiler saw no kernels)"), flush=True)
+    report["wavefront_path_profile"] = prof5b
+
+    # the same 56 oriented pairs, with the pipeline's hints, through the
+    # wavefront route and through the segmented dense engine
+    from allwave_tpu_torch.engine.pipeline import AllPairAligner
+
+    apa = AllPairAligner(seqs5b, parse_scores(SCORES), exclude_self=True, use_mash_orientation=True)
+    pairs5b = apa.get_pairs()
+    pool5b, qi5b, ti5b, _, hints5b = apa._orient_chunk(pairs5b)
+    ua5b = UnifiedAligner(pen, device=dev)
+    t0 = time.perf_counter()
+    wf_out, wf_st = ua5b.align_pairs_indexed(pool5b, qi5b, ti5b, with_stats=True, sigma_hint=hints5b)
+    wf_s = time.perf_counter() - t0
+    os.environ["ALLWAVE_WFSEG"] = "0"
+    try:
+        t0 = time.perf_counter()
+        seg_out, seg_st = ua5b.align_pairs_indexed(pool5b, qi5b, ti5b, with_stats=True,
+                                                   sigma_hint=hints5b)
+        seg5b_s = time.perf_counter() - t0
+    finally:
+        del os.environ["ALLWAVE_WFSEG"]
+    check(all(r is not None for r in wf_out + seg_out), "phase 14 engines have failed pairs")
+    same = [a[0] == b[0] and np.array_equal(a[1], b[1]) for a, b in zip(wf_out, seg_out)]
+    check(all(same), f"wavefront and segmented engines differ on {same.count(False)} of 56 pairs")
+    check(np.array_equal(wf_st, seg_st), "wavefront and segmented stats differ")
+    pipe = {(r.query_idx, r.target_idx): r.score for r in res5b}
+    check([pipe[(int(i), int(j))] for i, j in pairs5b] == [int(r[0]) for r in wf_out],
+          "the pipeline's scores differ from the wavefront route's")
+    p14b = {"pairs": len(same), "identical": sum(same), "wavefront_s": wf_s,
+            "segmented_s": seg5b_s, "hints": [int(h) for h in hints5b]}
+    print("phase 14 wavefront vs segmented: " + json.dumps(p14b), flush=True)
+    report["wavefront_vs_segmented"] = p14b
+    stamp(14)
+
+    # -- phase 15: both wavefront kernels against their plain versions at
+    # every band phase 14 launched, at its widest batch, on the 5b pairs:
+    # the sweep at its real score cap (kernel, timed), its first two
+    # segments kernel against plain (every slot, scores, done; and the
+    # full sweep's first two slots), a narrow history span, and two
+    # backward segments of the walk at each run_cap phase 14 used
+    C5 = TW.WfSegConfig().ckpt_every
+    k_sub5 = -(-(2 * C5 + 320) // 512) * 512
+    widest5 = {}
+    for (B, K, W, l_pad, ns, hist), _n in wf_span_shapes.items():
+        B0, cap0 = widest5.get((K, l_pad), (0, 0))  # (batch, sweep score cap)
+        widest5[(K, l_pad)] = (max(B, B0), cap0 if hist else max(ns, cap0))
+    wf15, tb15 = [], []
+    order5 = np.argsort([len(pool5b[q]) + len(pool5b[t]) for q, t in zip(qi5b, ti5b)], kind="stable")
+    for (K, l_pad), (B, s_cap) in sorted(widest5.items()):
+        caps = sorted({sh[4] for sh in wf_tb_shapes if sh[1] == K})
+        rows = [int(order5[j % len(order5)]) for j in range(B)]
+        qs = torch.zeros((B, l_pad), dtype=torch.uint8)
+        ts = torch.zeros((B, l_pad), dtype=torch.uint8)
+        for b, j in enumerate(rows):
+            q, t = pool5b[qi5b[j]], pool5b[ti5b[j]]
+            qs[b, : len(q)] = torch.frombuffer(bytearray(q), dtype=torch.uint8)
+            ts[b, : len(t)] = torch.frombuffer(bytearray(t), dtype=torch.uint8)
+        ql = torch.tensor([len(pool5b[qi5b[j]]) for j in rows], dtype=torch.int32)
+        tl = torch.tensor([len(pool5b[ti5b[j]]) for j in rows], dtype=torch.int32)
+        batch = tuple(x.to(dev) for x in (qs, ts, ql, tl))
+        init = TW.wf_init(*batch, pen, K)
+        at = f"5b B={B} K={K} l_pad={l_pad}"
+        (ck_f, _, d_f, s_f), full_ms = timed_once(lambda: TW.wf_span(
+            *batch, pen, K, l_pad, 0, s_cap, init.seeds, False, ckpt_every=C5,
+            done=init.done0, scores=init.scores0))
+        r, (ck2, _, _) = wf_sweep_check(pen, batch, init, K, l_pad, C5, 2 * C5, 2, at)
+        check(torch.equal(ck_f[:2], ck2), f"the full sweep's first slots differ at {at}")
+        wf15.append({**r, "full_n_steps": s_cap, "full_sweep_ms": full_ms,
+                     "full_done": int(d_f.sum()), "full_max_score": int(s_f.max())})
+        top = (int(s_f[d_f].max()) - 1) // C5
+        narrow = K > k_sub5
+        c_lo = narrow_offsets(init.c_end, K, k_sub5) if narrow else None
+        wf15.append(wf_hist_check(pen, batch, K, l_pad, C5, top, ck_f[top], c_lo,
+                                  k_sub5 if narrow else None, 2, at)[0])
+        tb15 += wf_walk_chain(dev, pen, batch, init, ck_f, d_f, s_f, K, l_pad, C5, k_sub5,
+                              caps, reps=3, n_seg=2)
+        del ck_f, ck2
+    check(wf15 and tb15, "no wavefront shape of phase 14 was held against its plain version")
+    for r in wf15 + tb15:
+        print("phase 15 wavefront shape: " + json.dumps(r), flush=True)
+    report["wavefront_shapes"] = wf15 + tb15
+    stamp(15)
+    # the kernel line's times: the widest round's two-segment sweep and
+    # its walk at the smallest run_cap
+    wf_sweep = max((r for r in wf15 if r["mode"] == "sweep"), key=lambda r: (r["B"] * r["K"]))
+    wf_walk = max(tb15, key=lambda r: (r["B"] * r["K"], -r["run_cap"]))
+
     kernels = [
         {
             "name": "dense_forward", "route": "cuda",
@@ -730,6 +1065,22 @@ def main() -> int:
             "launches": launches_long["segment_traceback"],
             "max_abs_err": max(r["max_abs_err"] for r in tb8 + tb11),
             "ms": walk["ms"], "plain_ms": walk["plain_ms"],
+        },
+        {
+            "name": "wf_span", "route": "cuda",
+            "source": "allwave_tpu_torch/csrc/wf_span.cu",
+            "replaces": "allwave_tpu/wfa/pallas_wf.py:717 (_call_kernel)",
+            "launches": launches_wf["wf_span"],
+            "max_abs_err": max(r["max_abs_err"] for r in wf12 + wf15),
+            "ms": wf_sweep["ms"], "plain_ms": wf_sweep["plain_ms"],
+        },
+        {
+            "name": "wf_traceback", "route": "cuda",
+            "source": "allwave_tpu_torch/csrc/wf_traceback.cu",
+            "replaces": "allwave_tpu/wfa/wf_segmented.py:379 (XLA _traceback_window)",
+            "launches": launches_wf["wf_traceback"],
+            "max_abs_err": max(r["max_abs_err"] for r in tb13 + tb15),
+            "ms": wf_walk["ms"], "plain_ms": wf_walk["plain_ms"],
         },
     ]
     with open(os.path.join(OUT_DIR, "report.json"), "w") as f:

@@ -1,6 +1,8 @@
 """The hand-written CUDA kernels against their plain PyTorch versions
-(allwave_tpu_torch/wfa/dense.py), on the card. The plain versions are
-held to the JAX reference on the CPU by tests/test_torch_dense.py.
+(allwave_tpu_torch/wfa/dense.py, segmented.py and wf_segmented.py), on
+the card. The plain versions are held to the JAX reference on the CPU
+by tests/test_torch_dense.py, test_torch_segmented.py and
+test_torch_wavefront.py.
 
 Every test here needs a CUDA device, is marked `cuda` and skips without
 one. This file imports no JAX, so it also runs on a machine that has
@@ -208,5 +210,112 @@ def test_long_route_launches_kernels_and_matches_cpu(cuda_device):
     assert any(s[2] < s[1] for s in TS.span_launches.shapes)  # narrow replay ran
     cpu = UnifiedAligner(pen, dense_max_len=100, device="cpu",
                          segmented_config=cfg).align_pairs(pairs, with_stats=True)
+    assert [(r[0], bytes(r[1])) for r in gpu[0]] == [(r[0], bytes(r[1])) for r in cpu[0]]
+    np.testing.assert_array_equal(gpu[1], cpu[1])
+
+
+def _wf_inputs(device, scores_str, l_pad, K, seed, div=0.03):
+    """A wavefront edge-case batch on the card and its score-0 state."""
+    from allwave_tpu_torch.testing.batches import wavefront_batch
+    from allwave_tpu_torch.wfa import wf_segmented as TW
+
+    pen = resolve_penalties(parse_scores(scores_str))
+    batch = tuple(torch.from_numpy(a).to(device)
+                  for a in wavefront_batch(np.random.RandomState(seed), l_pad, K, div))
+    return pen, batch, TW.wf_init(*batch, pen, K)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scores_str,K", [(s, 256) for s in SCORE_SETS] + [("0,5,8,2,24,1", 2048)])
+def test_wf_span_kernel_matches_plain(cuda_device, scores_str, K):
+    """The sweep's scores, done and every checkpoint slot; then history
+    spans from a kernel-made checkpoint at full band and on a sub-band
+    at per-pair c_lo (K = 2048 keeps the sweep's ring in the global
+    scratch)."""
+    from allwave_tpu_torch.wfa import wf_segmented as TW
+
+    l_pad, C, N = K + 256, 32, 256
+    pen, batch, init = _wf_inputs(cuda_device, scores_str, l_pad, K, K + len(scores_str))
+    args = (*batch, pen, K, l_pad)
+    kw = dict(ckpt_every=C, done=init.done0, scores=init.scores0)
+    n0 = TW.wf_span_launches.count
+    ck_k, _, d_k, s_k = TW.wf_span(*args, 0, N, init.seeds, False, **kw)
+    ck_p, _, d_p, s_p = TW.wf_span_ref(*args, 0, N, init.seeds, False, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(s_k, s_p) and torch.equal(d_k, d_p) and torch.equal(ck_k, ck_p)
+    assert bool(d_k[3]) and not bool(d_k[5])
+    seg = 2
+    c_lo = torch.tensor([0, 128, 0, 256, 384, 0, 512], dtype=torch.int32, device=cuda_device)
+    for narrow in (False, True):
+        sub = dict(c_lo=c_lo.clamp(max=K - 512), k_sub=512) if narrow and K > 512 else {}
+        _, h_k, _, _ = TW.wf_span(*args, seg * C, C, ck_k[seg], True, **sub)
+        _, h_p, _, _ = TW.wf_span_ref(*args, seg * C, C, ck_k[seg], True, **sub)
+        torch.cuda.synchronize()
+        assert torch.equal(h_k, h_p)
+    assert TW.wf_span_launches.count == n0 + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("run_cap,K", [(512, 256), (6, 256), (512, 2048)])
+def test_wf_traceback_kernel_matches_plain(cuda_device, run_cap, K):
+    """Walk state and the four run buffers after every segment, from
+    the end to the origin, over the span kernel's history planes
+    (narrow at K = 2048); run_cap 6 overflows."""
+    from allwave_tpu_torch.wfa import segmented as TS
+    from allwave_tpu_torch.wfa import wf_segmented as TW
+
+    l_pad, C, N = K + 256, 32, 512
+    pen, batch, init = _wf_inputs(cuda_device, "0,5,8,2,24,1", l_pad, K, 7, div=0.01)
+    ql, tl = batch[2], batch[3]
+    ck, _, done, scores = TW.wf_span(*batch, pen, K, l_pad, 0, N, init.seeds, False,
+                                     ckpt_every=C, done=init.done0, scores=init.scores0)
+    walks = [TW.new_walk(torch.where(done, scores, -1), init.c_end, tl, done) for _ in range(2)]
+    bufs = [TW.new_bufs(len(ql), run_cap, cuda_device) for _ in range(2)]
+    narrow = K > 512
+    for seg in range((int(scores[done].max()) - 1) // C, -1, -1):
+        c_lo = TS.narrow_offsets(walks[0][1], K, 512) if narrow else None
+        _, hist, _, _ = TW.wf_span(*batch, pen, K, l_pad, seg * C, C, ck[seg], True,
+                                   c_lo=c_lo, k_sub=512 if narrow else None)
+        TW.wf_traceback(hist, ck[seg], seg * C, walks[0], bufs[0], pen, c_lo=c_lo)
+        TW.traceback_window_ref(hist, ck[seg], seg * C, walks[1], bufs[1], pen, c_lo=c_lo)
+        torch.cuda.synchronize()
+        assert torch.equal(walks[0], walks[1])
+        for a, b in zip(bufs[0], bufs[1]):
+            assert torch.equal(a, b)
+    assert bool(bufs[0][3].any()) == (run_cap < 64)
+
+
+@pytest.mark.cuda
+def test_wavefront_route_launches_kernels_and_matches_cpu(cuda_device, monkeypatch):
+    """UnifiedAligner's long route on the card sends hinted pairs to the
+    wavefront engine (both wavefront kernels launch, one pair falls
+    back to the segmented engine) and gives the results of the same
+    route forced on the CPU."""
+    from allwave_tpu_torch.testing.batches import mutate
+    from allwave_tpu_torch.wfa import wf_segmented as TW
+    from allwave_tpu_torch.wfa.dense_engine import UnifiedAligner
+
+    pen = resolve_penalties(parse_scores("0,5,8,2,24,1"))
+    rng = np.random.RandomState(23)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    pairs = []
+    for div in (0.005, 0.02, 0.3):
+        q = rng.choice(bases, 3000)
+        pairs.append((q.tobytes(), mutate(rng, q, div, 3).tobytes()))
+    hint = [100, 400, 9000]
+
+    def aligner(device):
+        ua = UnifiedAligner(pen, dense_max_len=1000, device=device)
+        ua.wf_segmented = TW.WavefrontSegmentedAligner(pen, TW.WfSegConfig(ckpt_every=64), dense=ua.dense)
+        return ua
+
+    TW.wf_span_launches.reset()
+    TW.wf_traceback_launches.reset()
+    TW.wf_stats.reset()
+    gpu = aligner(cuda_device).align_pairs(pairs, with_stats=True, sigma_hint=hint)
+    assert TW.wf_span_launches.count > 0 and TW.wf_traceback_launches.count > 0
+    assert TW.wf_stats.fallbacks == 1
+    monkeypatch.setenv("ALLWAVE_WFSEG", "1")
+    cpu = aligner("cpu").align_pairs(pairs, with_stats=True, sigma_hint=hint)
     assert [(r[0], bytes(r[1])) for r in gpu[0]] == [(r[0], bytes(r[1])) for r in cpu[0]]
     np.testing.assert_array_equal(gpu[1], cpu[1])

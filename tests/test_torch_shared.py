@@ -92,6 +92,8 @@ def test_imports_with_jax_blocked():
         "allwave_tpu_torch.engine.pipeline",
         "allwave_tpu_torch.wfa.dense_engine",
         "allwave_tpu_torch.wfa.cuda_build",
+        "allwave_tpu_torch.wfa.wf_segmented",
+        "allwave_tpu_torch.testing.batches",
         "allwave_tpu_torch.sparsify.knn",
         "allwave_tpu_torch.testing.dense",
     ]
