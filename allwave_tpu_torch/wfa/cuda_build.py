@@ -80,6 +80,20 @@ SIGNATURES = {
             _I,
         ),
     },
+    # the probes of allwave_tpu_torch/probes (no production path)
+    "probe_forward": {
+        "allwave_probe_forward": ([_P] * 4 + [_I] * 10 + [_P] * 4, _I),
+    },
+    "probe_step": {
+        "allwave_probe_step_smem": (
+            [_P] * 3 + [_I] * 8 + [_P] * 3 + [_I] * 2 + [_P, _I] + [_P] * 3,
+            _I,
+        ),
+        "allwave_probe_step_regs": ([_P] * 3 + [_I] * 8 + [_P] * 2, _I),
+    },
+    "probe_ops": {
+        "allwave_probe_ops": ([_P] * 2 + [_I] * 10 + [_P], _I),
+    },
 }
 
 _lock = threading.Lock()

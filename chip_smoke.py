@@ -5,8 +5,9 @@ Run from the repository root on a machine with one NVIDIA Hopper GPU:
 
     python3 chip_smoke.py
 
-It builds the six CUDA kernels from the sources in this checkout (one
-nvcc per source, all at once) and drives the port's three engines:
+It builds the nine CUDA kernel libraries from the sources in this
+checkout (one nvcc per source, all at once), drives the port's three
+engines and runs the probes:
 
 * the short-pair main path (phases 2-6): the dense forward and
   traceback kernels against their plain PyTorch versions, the CLI and
@@ -33,7 +34,12 @@ nvcc per source, all at once) and drives the port's three engines:
   AllPairAligner, with a profile, and the same 56 pairs through the
   segmented engine, which must give the same bytes (phase 14); and both
   kernels again at every band phase 14 launched, at its widest batch
-  (phase 15).
+  (phase 15);
+* the probes (phase 16, allwave_tpu_torch/probes, the ports of the
+  Pallas experiments in scripts/experiments): each probe kernel against
+  its plain version at a reduced shape and at the experiment's own
+  shape where the plain version is quick, then every variant timed at
+  the experiment's shape, as `python -m allwave_tpu_torch.probes` does.
 
 Each wrapper counts its launches by shape; every count is set to 0 just
 before a path is driven and read just after. Every kernel is held to its
@@ -42,7 +48,9 @@ bytes, walk states and run buffers must be equal, because the tie-break
 contract (docs/TIEBREAK.md) leaves no room. Every phase prints its result
 and its seconds on its own line; any failure exits non-zero. The last
 three lines are the card's name and power limit, a JSON object with one
-entry per kernel, and the device line `{"ok": true, "device": {...}}`.
+entry per kernel (its time beside its plain version's and its bound: the
+larger of its least int32 operations over the card's int32 rate and its
+bytes over HBM's), and the device line `{"ok": true, "device": {...}}`.
 
 Without a CUDA device, or without the rest of the repository beside
 it, the script exits non-zero before printing any result. It imports
@@ -112,6 +120,7 @@ def forward_case(device, scores_str, B, L, K, seed, div, reps, l_pad=None, run_c
     import torch
 
     from allwave_tpu_torch.core.scores import parse_scores
+    from allwave_tpu_torch.probes.kexp import active_cells
     from allwave_tpu_torch.testing.batches import random_batch
     from allwave_tpu_torch.wfa import dense as D
     from allwave_tpu_torch.wfa.params import resolve_penalties
@@ -140,6 +149,8 @@ def forward_case(device, scores_str, B, L, K, seed, div, reps, l_pad=None, run_c
     ms = time_ms(lambda: D.dense_forward(qs, ts, ql, tl, pen, K, l_pad), reps)
     tb_ms = time_ms(lambda: D.dense_traceback(p_k, s_k, c_k, ql, tl, cap), reps)
     cells = B * 2 * l_pad * K
+    _, k0, _ = D.band_geometry(ql, tl, K)
+    active = active_cells(ql.cpu().numpy(), tl.cpu().numpy(), k0.cpu().numpy(), K, 0, 2 * l_pad)
     return {
         "scores": scores_str, "B": B, "L": L, "l_pad": l_pad, "K": K, "run_cap": cap,
         "certified": int(c_k.sum()), "planes_equal": planes_equal,
@@ -148,6 +159,8 @@ def forward_case(device, scores_str, B, L, K, seed, div, reps, l_pad=None, run_c
         "tolerance": 0, "ms": ms, "plain_ms": plain_ms,
         "gcells_s": cells / (ms * 1e6), "plain_gcells_s": cells / (plain_ms * 1e6),
         "traceback_ms": tb_ms, "traceback_plain_ms": tb_plain_ms,
+        "active_cells": active, "runs": int(t_k[:, :32].contiguous().view(torch.int32)[:, 1].sum()),
+        "traceback_out_bytes": t_k.numel(),
     }
 
 
@@ -196,6 +209,7 @@ def span_case(device, B, L, l_pad, K, k_sub, C, seg, seed, div, reps, run_caps=(
     import torch
 
     from allwave_tpu_torch.core.scores import parse_scores
+    from allwave_tpu_torch.probes.kexp import active_cells
     from allwave_tpu_torch.testing.batches import random_batch
     from allwave_tpu_torch.wfa import segmented as TS
     from allwave_tpu_torch.wfa.dense import band_geometry
@@ -228,11 +242,13 @@ def span_case(device, B, L, l_pad, K, k_sub, C, seg, seed, div, reps, run_caps=(
         del st_p, pl_p
         ms = time_ms(lambda: TS.dense_span(*args, with_planes, **kw), reps)
         cells = B * C * W
+        k_lo = k0 + (c_lo if narrow else 0)
+        active = active_cells(ql.cpu().numpy(), tl.cpu().numpy(), k_lo.cpu().numpy(), W, d_lo, C)
         spans.append({
             "B": B, "l_pad": l_pad, "K": K, "k_sub": W, "d_lo": d_lo, "n_steps": C,
             "with_planes": with_planes, "max_abs_err": err, "tolerance": 0,
             "ms": ms, "plain_ms": plain_ms, "gcells_s": cells / (ms * 1e6),
-            "plain_gcells_s": cells / (plain_ms * 1e6),
+            "plain_gcells_s": cells / (plain_ms * 1e6), "active_cells": active,
         })
     for cap in run_caps:
         walk0 = TS.new_walk(torch.full_like(ql, d_lo + C), c, torch.ones_like(ql, dtype=torch.bool))
@@ -303,6 +319,9 @@ def wf_sweep_check(pen, batch, init, K, l_pad, C, n_steps, reps, at):
         "mode": "sweep", "B": B, "K": K, "W": K, "l_pad": l_pad, "n_steps": n_steps,
         "ckpt_every": C, "done": int(d_k.sum()), "max_abs_err": int((s_k - s_p).abs().max()),
         "tolerance": 0, "ms": ms, "plain_ms": plain_ms,
+        # a pair's sweep stops after the level it finished at
+        "lane_levels": int(torch.where(d_k, s_k, n_steps).sum()) * K,
+        "ckpt_bytes": ck_k.numel() * ck_k.element_size(),
     }, (ck_k, d_k, s_k)
 
 
@@ -926,6 +945,7 @@ def main() -> int:
         "rounds_K_scap_B": rounds5b, "cli_s": cli5b_s, "warm_s": warm5b_s,
         "warm_alignments_per_s": len(res5b) / warm5b_s, "launches": launches_wf,
         "segmented_span_launches": TS.span_launches.count,
+        "dense_forward_launches": D.forward_launches.count,
         "wf_span_shapes": sorted(wf_span_shapes.items()),
         "wf_traceback_shapes": sorted(wf_tb_shapes.items()),
         "scores": sorted(r.score for r in res5b),
@@ -1032,6 +1052,98 @@ def main() -> int:
     wf_sweep = max((r for r in wf15 if r["mode"] == "sweep"), key=lambda r: (r["B"] * r["K"]))
     wf_walk = max(tb15, key=lambda r: (r["B"] * r["K"], -r["run_cap"]))
 
+    # -- phase 16: the probes of allwave_tpu_torch/probes (the six Pallas
+    # experiments of scripts/experiments): every probe kernel against its
+    # plain version (tolerance 0) at a reduced shape and at the
+    # experiment's own shape where the plain version is quick, then the
+    # probes' own path, `python -m allwave_tpu_torch.probes`: every
+    # variant timed at the experiment's shape (mean of 5 after a warm-up)
+    from allwave_tpu_torch.probes import runner as PR
+    from allwave_tpu_torch.probes import kexp as P1
+    from allwave_tpu_torch.probes import kexp2 as P2
+    from allwave_tpu_torch.probes import kexp6 as P6
+
+    ops_s = PR.int32_ops_s(dev)
+    checks16 = PR.check_all(dev)
+    for r in checks16:
+        print("phase 16 probe: " + json.dumps(r), flush=True)
+    probe_counts = (P1.forward_launches, P6.step_launches, P2.ops_launches)
+    for lc in probe_counts:
+        lc.reset()
+    # (x2 and x3 on the filled card only: their one-copy latencies are
+    # the entry point's)
+    times16 = PR.time_all(dev, ops_s=ops_s, latency=False)
+    torch.cuda.synchronize()
+    launches_probe = {"probe_forward": P1.forward_launches.count,
+                      "probe_step": P6.step_launches.count, "probe_ops": P2.ops_launches.count}
+    check(all(v > 0 for v in launches_probe.values()),
+          f"the probes did not launch all three kernels: {launches_probe}")
+    for r in times16:
+        print("phase 16 probe: " + json.dumps(r), flush=True)
+    report["probes"] = {"checks": checks16, "times": times16, "launches": launches_probe,
+                        "int32_ops_s": ops_s}
+    stamp(16)
+
+    def pick(rows, **want):
+        return next(r for r in rows if all(r.get(k) == v for k, v in want.items()))
+
+    # the kernel line's probe times: x1 V1 at kexp.py's shape, x4 v0 and
+    # x2's full-size case on the filled card, each beside the plain
+    # version's time on the same inputs (phase 16's full-size checks)
+    x1_shape = dict(B=PR.X1_KEXP[0], K=PR.X1_KEXP[3])
+    x1_t, x1_c = pick(times16, file="kexp", variant="V1", **x1_shape), pick(
+        checks16, file="kexp", variant="V1", **x1_shape)
+    x4_t = pick(times16, file="kexp6", variant="v0")
+    x4_c = pick(checks16, file="kexp6", variant="v0", K=P6.K)
+    x2_t = max((r for r in times16 if r["variant"] == PR.X2_FULL_CASE),
+               key=lambda r: r["copies"])
+    x2_c = pick(checks16, file="kexp2", variant=PR.X2_FULL_CASE, n_steps=P2.STEPS * P2.TILES)
+
+    # each engine kernel's bound, from this run's inputs: the least int32
+    # operations its function needs (a DP cell P1.CELL_OPS, its plane byte
+    # and run length P1.PLANE_OPS; a wavefront lane-level WF_LEVEL_OPS;
+    # a walk WALK_OPS and one plane entry read per CIGAR run it emits)
+    # over the card's int32 rate, or its bytes (inputs once, outputs once)
+    # over HBM, whichever is larger. Operations are ALU instruction slots, as
+    # kexp6.STEP_OPS counts them. A lane-level: I1 and I2 a max and an add
+    # each, D1 and D2 a max each, the mismatch term's add, the five-way
+    # max in two VIMNMX3 (9); the extension's first 8-byte compare, two
+    # LOP3 for the XOR, a find-first-set and the add to the offset (4):
+    # 13 instructions, of which the 4 adds can run as IMAD on the FMA
+    # pipe, so max(9, 13 / 2) = 9 ALU slots. Band-end caps, like the DP's
+    # lane masks, are not counted.
+    WF_LEVEL_OPS, WALK_OPS = 9, 8
+
+    def bnd(ops, nbytes):
+        ms_b, by = PR.bound(ops, nbytes, ops_s)
+        return {"bound_ms": ms_b, "bound_by": by, "library_ms": None}
+
+    def fwd_bound_of(r):  # bases and lengths in; scores, certificates, plane out
+        return bnd(r["active_cells"] * (P1.CELL_OPS + P1.PLANE_OPS),
+                   r["B"] * (2 * r["l_pad"] + 13) + 2 * r["l_pad"] * r["B"] * r["K"] * 2)
+
+    def span_bound_of(r):  # the state and bases in; the end state or the plane out
+        planes = r["with_planes"]
+        out = r["n_steps"] * r["B"] * r["k_sub"] * 2 if planes else 5 * r["B"] * r["K"] * 4
+        return bnd(r["active_cells"] * (P1.CELL_OPS + (P1.PLANE_OPS if planes else 0)),
+                   5 * r["B"] * r["K"] * 4 + r["B"] * r["n_steps"] + out)
+
+    # every forward shape of phase 6 and span shape of phase 11 beside its bound
+    for r in at_shape:
+        print("phase 16 bound: " + json.dumps({"kernel": "dense_forward", **{
+            k: r[k] for k in ("B", "K", "l_pad", "ms")}, **fwd_bound_of(r)}), flush=True)
+    for r in span11:
+        print("phase 16 bound: " + json.dumps({"kernel": "dense_span", **{
+            k: r[k] for k in ("B", "K", "k_sub", "l_pad", "n_steps", "with_planes", "ms")},
+            **span_bound_of(r)}), flush=True)
+    fwd_bound = fwd_bound_of(head)
+    tb_bound = bnd(head["runs"] * WALK_OPS, 2 * head["runs"] + head["traceback_out_bytes"])
+    span_bound = span_bound_of(sweep)
+    walk_bound = bnd(walk["runs"] * WALK_OPS, 2 * walk["runs"])
+    wf_bound = bnd(wf_sweep["lane_levels"] * WF_LEVEL_OPS,
+                   wf_sweep["ckpt_bytes"] + 2 * wf_sweep["B"] * wf_sweep["l_pad"])
+    wf_walk_bound = bnd(wf_walk["runs"] * WALK_OPS, 2 * wf_walk["runs"])
+
     kernels = [
         {
             "name": "dense_forward", "route": "cuda",
@@ -1040,7 +1152,7 @@ def main() -> int:
                         "allwave_tpu/wfa/pallas_dense.py:1390 (_forward_c2)",
             "launches": launches["dense_forward"],
             "max_abs_err": max(r["max_abs_err"] for r in fwd + at_shape),
-            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "ms": head["ms"], "plain_ms": head["plain_ms"], **fwd_bound,
         },
         {
             "name": "dense_traceback", "route": "cuda",
@@ -1048,7 +1160,7 @@ def main() -> int:
             "replaces": "allwave_tpu/wfa/dense.py:488 (XLA dense_traceback)",
             "launches": launches["dense_traceback"],
             "max_abs_err": max(r["max_abs_err"] for r in tb + at_shape),
-            "ms": head["traceback_ms"], "plain_ms": head["traceback_plain_ms"],
+            "ms": head["traceback_ms"], "plain_ms": head["traceback_plain_ms"], **tb_bound,
         },
         {
             "name": "dense_span", "route": "cuda",
@@ -1056,7 +1168,7 @@ def main() -> int:
             "replaces": "allwave_tpu/wfa/pallas_span.py:208 (_span_call)",
             "launches": launches_long["dense_span"],
             "max_abs_err": max(r["max_abs_err"] for r in span7 + span11),
-            "ms": sweep["ms"], "plain_ms": sweep["plain_ms"],
+            "ms": sweep["ms"], "plain_ms": sweep["plain_ms"], **span_bound,
         },
         {
             "name": "segment_traceback", "route": "cuda",
@@ -1064,7 +1176,7 @@ def main() -> int:
             "replaces": "allwave_tpu/wfa/segmented.py:382 (XLA _traceback_core)",
             "launches": launches_long["segment_traceback"],
             "max_abs_err": max(r["max_abs_err"] for r in tb8 + tb11),
-            "ms": walk["ms"], "plain_ms": walk["plain_ms"],
+            "ms": walk["ms"], "plain_ms": walk["plain_ms"], **walk_bound,
         },
         {
             "name": "wf_span", "route": "cuda",
@@ -1072,7 +1184,7 @@ def main() -> int:
             "replaces": "allwave_tpu/wfa/pallas_wf.py:717 (_call_kernel)",
             "launches": launches_wf["wf_span"],
             "max_abs_err": max(r["max_abs_err"] for r in wf12 + wf15),
-            "ms": wf_sweep["ms"], "plain_ms": wf_sweep["plain_ms"],
+            "ms": wf_sweep["ms"], "plain_ms": wf_sweep["plain_ms"], **wf_bound,
         },
         {
             "name": "wf_traceback", "route": "cuda",
@@ -1080,7 +1192,39 @@ def main() -> int:
             "replaces": "allwave_tpu/wfa/wf_segmented.py:379 (XLA _traceback_window)",
             "launches": launches_wf["wf_traceback"],
             "max_abs_err": max(r["max_abs_err"] for r in tb13 + tb15),
-            "ms": wf_walk["ms"], "plain_ms": wf_walk["plain_ms"],
+            "ms": wf_walk["ms"], "plain_ms": wf_walk["plain_ms"], **wf_walk_bound,
+        },
+        {
+            "name": "probe_forward", "route": "cuda",
+            "source": "allwave_tpu_torch/csrc/probe_forward.cu",
+            "replaces": "scripts/experiments/kexp.py:200 (forward_v)",
+            "launches": launches_probe["probe_forward"],
+            "max_abs_err": max(r["max_abs_err"] for r in checks16 if r["file"] == "kexp"),
+            "ms": x1_t["ms"], "plain_ms": x1_c["plain_ms"],
+            "bound_ms": x1_t["bound_ms"], "bound_by": x1_t["bound_by"], "library_ms": None,
+        },
+        {
+            "name": "probe_step", "route": "cuda",
+            "source": "allwave_tpu_torch/csrc/probe_step.cu",
+            "replaces": "scripts/experiments/kexp6.py:134 (run); "
+                        "scripts/experiments/kexp7.py:54 (make_kernel); "
+                        "scripts/experiments/kexp8.py:29 (make_kernel)",
+            "launches": launches_probe["probe_step"],
+            "max_abs_err": max(r["max_abs_err"] for r in checks16
+                               if r["file"] in ("kexp6", "kexp7", "kexp8")),
+            "ms": x4_t["ms"], "plain_ms": x4_c["plain_ms"],
+            "bound_ms": x4_t["bound_ms"], "bound_by": x4_t["bound_by"], "library_ms": None,
+        },
+        {
+            "name": "probe_ops", "route": "cuda",
+            "source": "allwave_tpu_torch/csrc/probe_ops.cu",
+            "replaces": "scripts/experiments/kexp2.py:22 (make); "
+                        "scripts/experiments/kexp3.py:19 (make)",
+            "launches": launches_probe["probe_ops"],
+            "max_abs_err": max(r["max_abs_err"] for r in checks16
+                               if r["file"] in ("kexp2", "kexp3")),
+            "ms": x2_t["ms"], "plain_ms": x2_c["plain_ms"],
+            "bound_ms": x2_t["bound_ms"], "bound_by": x2_t["bound_by"], "library_ms": None,
         },
     ]
     with open(os.path.join(OUT_DIR, "report.json"), "w") as f:

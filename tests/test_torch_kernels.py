@@ -1,8 +1,9 @@
 """The hand-written CUDA kernels against their plain PyTorch versions
-(allwave_tpu_torch/wfa/dense.py, segmented.py and wf_segmented.py), on
-the card. The plain versions are held to the JAX reference on the CPU
-by tests/test_torch_dense.py, test_torch_segmented.py and
-test_torch_wavefront.py.
+(allwave_tpu_torch/wfa/dense.py, segmented.py and wf_segmented.py, and
+the probes of allwave_tpu_torch/probes), on the card. The plain versions
+are held to the JAX reference on the CPU by tests/test_torch_dense.py,
+test_torch_segmented.py, test_torch_wavefront.py and
+test_torch_probes.py.
 
 Every test here needs a CUDA device, is marked `cuda` and skips without
 one. This file imports no JAX, so it also runs on a machine that has
@@ -319,3 +320,35 @@ def test_wavefront_route_launches_kernels_and_matches_cpu(cuda_device, monkeypat
     cpu = aligner("cpu").align_pairs(pairs, with_stats=True, sigma_hint=hint)
     assert [(r[0], bytes(r[1])) for r in gpu[0]] == [(r[0], bytes(r[1])) for r in cpu[0]]
     np.testing.assert_array_equal(gpu[1], cpu[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("probe", ["kexp", "kexp2", "kexp3", "kexp6", "kexp7", "kexp8"])
+def test_probe_kernel_matches_plain(cuda_device, probe):
+    """Each probe kernel of allwave_tpu_torch/probes against its plain
+    version at the reduced shapes, every variant (x1 also against the
+    engine's forward and its traceback)."""
+    from allwave_tpu_torch.probes import runner
+    from allwave_tpu_torch.probes import kexp as P1
+    from allwave_tpu_torch.probes import kexp2 as P2
+    from allwave_tpu_torch.probes import kexp6 as P6
+
+    count = {"kexp": P1.forward_launches, "kexp2": P2.ops_launches, "kexp3": P2.ops_launches,
+             "kexp6": P6.step_launches, "kexp7": P6.step_launches, "kexp8": P6.step_launches}[probe]
+    n0 = count.count
+    out = runner.check_all(cuda_device, (probe,), full=False)
+    torch.cuda.synchronize()
+    assert out and all(r["max_abs_err"] == 0 for r in out)
+    assert count.count > n0
+
+
+@pytest.mark.cuda
+def test_probe_forward_at_headline_band(cuda_device):
+    """x1 at K = 192 (the headline's band round, its own template
+    instance) against its plain version, the engine's forward and its
+    traceback, every variant."""
+    from allwave_tpu_torch.probes import runner
+
+    out = []
+    runner.check_x1(cuda_device, 64, 200, 256, 192, out)
+    assert len(out) == 3 and all(r["max_abs_err"] == 0 for r in out)
