@@ -17,11 +17,11 @@
 // when the bands do not fit in shared memory. The replay adds one
 // 2-byte plane store per lane and step.
 //
-// Design: dense_forward.cu's, with the d-loop running d_lo+1 ..
+// Design: dense_forward.cu's tier 3, with the d-loop running d_lo+1 ..
 // d_lo+n_steps. One block per pair; lanes strided over up to 1024
 // threads; the five int32 bands and the run-length band double-buffered
 // (one barrier per step) in shared memory up to SMEM_MAX_K lanes
-// (wfa/dense.py) and in a per-pair global scratch above. The state comes
+// (wfa/segmented.py) and in a per-pair global scratch above. The state comes
 // in from a checkpoint slice, optionally at a per-pair column offset
 // c_lo into a wider band (the narrow replay: origin k0 + c_lo, INF
 // inflow at the window's edges), and the state out goes straight to its

@@ -30,6 +30,33 @@ def random_batch(rng, B: int, L: int, l_pad: int, div: float = 0.05, min_len=Non
     return qs, ts, qlens, tlens
 
 
+def edge_batch(rng, B: int, l_pad: int, K: int, div: float = 0.05):
+    """random_batch(rng, B, l_pad, l_pad, div) with its first rows
+    replaced by the forward's edge pairs, as (qlen, tlen): (0, 0), (1, 1),
+    (0, 3), (l_pad, l_pad); where l_pad >= K - 1 the band's edges
+    |k_end| = K - 1 on both sides; and where l_pad >= K an infeasible
+    pair, |k_end| = K. A target is its query's prefix, or the query and
+    random bases, with ~div substitutions."""
+    qs, ts, qlens, tlens = random_batch(rng, B, l_pad, l_pad, div)
+    lens = [(0, 0), (1, 1), (0, 3), (l_pad, l_pad)]
+    if l_pad >= K - 1:
+        lens += [(l_pad, l_pad - (K - 1)), (l_pad - (K - 1), l_pad)]
+    if l_pad >= K:
+        lens.append((l_pad, l_pad - K))
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    for b, (ql, tl) in enumerate(lens[:B]):
+        q = rng.choice(bases, ql)
+        t = np.concatenate([q, rng.choice(bases, max(tl - ql, 0))])[:tl]
+        mut = rng.rand(tl) < div
+        t[mut] = rng.choice(bases, mut.sum())
+        qs[b] = 0
+        ts[b] = 0
+        qs[b, :ql] = q
+        ts[b, :tl] = t
+        qlens[b], tlens[b] = ql, tl
+    return qs, ts, qlens, tlens
+
+
 def mutate(rng, q: np.ndarray, div: float, n_indel: int) -> np.ndarray:
     """A copy of q with ~div substitutions and n_indel indels of 1-3
     bases."""

@@ -11,6 +11,10 @@ Every C entry point takes raw pointers and the CUDA stream as
 `void*` (declared `c_void_p` here: a 64-bit pointer passed as a plain
 Python int would be cut to 32 bits) and returns `cudaGetLastError()`
 after its launch; `check()` raises on a non-zero code.
+
+nvcc runs with `-Xptxas -v`; what it prints is kept beside each library
+(`lib<name>-<hash>.log`), and `ptxas_usage()` reads every kernel's
+registers and spill bytes from it.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -36,6 +41,8 @@ NVCC_FLAGS = [
     "-shared",
     "-Xcompiler",
     "-fPIC",
+    "-Xptxas",
+    "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -45,11 +52,8 @@ _L = ctypes.c_longlong
 #: C signatures: name -> (argtypes, restype), per source
 SIGNATURES = {
     "dense_forward": {
-        "allwave_dense_forward": (
-            [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-             _P, _P, _P, _P, _P, _P],
-            _I,
-        ),
+        "allwave_dense_forward": ([_P] * 4 + [_I] * 10 + [_P] * 6, _I),
+        "allwave_dense_forward_design": ([_I, _I, _I], _I),
         "allwave_cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "dense_traceback": {
@@ -123,6 +127,10 @@ def _library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
 
 
+def _log_path(so: str) -> str:
+    return so[: -len(".so")] + ".log"
+
+
 def _build(names) -> None:
     """Compile every named source whose library is missing, one nvcc
     process each, all started together. Call with _lock held."""
@@ -147,6 +155,8 @@ def _build(names) -> None:
         if proc.returncode != 0:
             failed.append(f"nvcc failed on {src} (exit {proc.returncode}):\n{out}\n{err}")
             continue
+        with open(_log_path(so), "w") as f:
+            f.write(out + err)
         os.replace(tmp, so)
         build_seconds[name] = time.perf_counter() - t0
     if failed:
@@ -172,6 +182,42 @@ def library(name: str) -> ctypes.CDLL:
             getattr(lib, fn).restype = restype
         _libs[name] = lib
         return lib
+
+
+_PTXAS_FUNC = re.compile(r"(?:Compiling entry function '|Function properties for )([^'\s]+)")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
+
+
+def ptxas_usage(name: str) -> Dict[str, dict]:
+    """{kernel: {"registers", "stack", "spill_stores", "spill_loads"}}
+    for every kernel of `csrc/<name>.cu`, from the build's ptxas report
+    (names demangled by cu++filt where the toolkit has it)."""
+    library(name)
+    with open(_log_path(_library_path(name))) as f:
+        log = f.read()
+    usage: Dict[str, dict] = {}
+    cur = None
+    for line in log.splitlines():
+        m = _PTXAS_FUNC.search(line)
+        if m:
+            cur = usage.setdefault(m.group(1), {})
+        elif cur is not None:
+            m = _PTXAS_REGS.search(line)
+            if m:
+                cur["registers"] = int(m.group(1))
+            m = _PTXAS_SPILL.search(line)
+            if m:
+                cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+    filt = os.path.join(os.path.dirname(_nvcc()), "cu++filt")
+    names = list(usage)
+    if names and os.path.exists(filt):
+        out = subprocess.run([filt], input="\n".join(names), capture_output=True,
+                             text=True, check=True).stdout.splitlines()
+        if len(out) == len(names):
+            return {new: usage[old] for old, new in zip(names, out)}
+    return usage
 
 
 def check(rc: int, what: str) -> None:

@@ -17,7 +17,9 @@ Each step has two versions here:
   on any torch device, used by the CPU tests and as the reference for
   the kernels on the card;
 * a hand-written CUDA kernel (csrc/dense_forward.cu,
-  csrc/dense_traceback.cu).
+  csrc/dense_traceback.cu). The forward has three designs (tiers) by
+  band width; the C entry point `allwave_dense_forward_design` says
+  which one a (K, l_pad) runs, and `forward_design` reads it.
 
 The public wrappers `dense_forward` and `dense_traceback` pick by the
 device of the tensors they are given: a CPU tensor goes to the plain
@@ -29,6 +31,7 @@ kernel launches in `forward_launches` / `traceback_launches`.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -49,10 +52,6 @@ _OP_X = ord("X")
 _OP_I = ord("I")
 _OP_D = ord("D")
 
-#: widest band whose double-buffered lanes (42 bytes each) the forward
-#: kernel keeps in shared memory; wider bands use a global scratch
-SMEM_MAX_K = (200 * 1024) // 42
-
 #: hops per early-exit check of the plain traceback (the XLA walk's
 #: chunk length; its hop bound counts whole chunks)
 CHUNK = 32
@@ -62,21 +61,26 @@ CHUNK = 32
 class LaunchCount:
     """Kernel launches through one wrapper, the widest band K any of
     them ran, and the launches at each distinct shape: (B, K, l_pad)
-    for the forward, (B, K, l_pad, run_cap) for the traceback."""
+    for the forward, (B, K, l_pad, run_cap) for the traceback; for the
+    forward also the design (`ForwardDesign`) each shape ran."""
 
     count: int = 0
     widest_k: int = 0
     shapes: dict = field(default_factory=dict)
+    designs: dict = field(default_factory=dict)
 
-    def launched(self, shape: tuple) -> None:
+    def launched(self, shape: tuple, design=None) -> None:
         self.count += 1
         self.widest_k = max(self.widest_k, shape[1])
         self.shapes[shape] = self.shapes.get(shape, 0) + 1
+        if design is not None:
+            self.designs[shape] = design
 
     def reset(self) -> None:
         self.count = 0
         self.widest_k = 0
         self.shapes.clear()
+        self.designs.clear()
 
 
 forward_launches = LaunchCount()
@@ -433,6 +437,32 @@ def pack_alignments(scores, cert, ops, lens, nruns, overflow) -> torch.Tensor:
     return torch.cat([meta_u8, ops_packed, lens], dim=1)
 
 
+class ForwardDesign(NamedTuple):
+    """What csrc/dense_forward.cu runs at one (K, l_pad): the fields of
+    the code `allwave_dense_forward_design` returns."""
+
+    code: int
+    tier: int  # 1: a warp a pair; 2: a block a pair, a halo; 3: bands in memory
+    lanes_per_thread: int
+    warps_per_pair: int
+    stage_bases: bool  # base tables in shared memory (tier 1; tier 2 always)
+    scratch: bool  # bands in a global scratch (tier 3)
+
+
+def forward_design(K: int, l_pad: int, stage_bases: Optional[bool] = None) -> ForwardDesign:
+    """The forward kernel's design at band K and l_pad, from its C
+    dispatch; `stage_bases` overrides where tier 1 reads the bases.
+    Raises for a design that cannot run."""
+    from . import cuda_build
+
+    lib = cuda_build.library("dense_forward")
+    code = lib.allwave_dense_forward_design(K, l_pad, -1 if stage_bases is None else int(stage_bases))
+    if code < 0:
+        raise ValueError(f"no forward design for K={K} l_pad={l_pad} stage_bases={stage_bases}")
+    return ForwardDesign(code, code & 3, (code >> 2) & 63, (code >> 8) & 255,
+                         bool(code >> 16 & 1), bool(code >> 17 & 1))
+
+
 def _check_cuda(name: str, t: torch.Tensor, dtype, shape) -> None:
     if t.device.type != "cuda" or t.dtype != dtype or tuple(t.shape) != shape:
         raise ValueError(
@@ -450,10 +480,14 @@ def _device_kind(t: torch.Tensor) -> str:
     return kind
 
 
-def dense_forward(qs, ts, qlens, tlens, pen: Penalties, k_width: int, l_pad: int):
+def dense_forward(
+    qs, ts, qlens, tlens, pen: Penalties, k_width: int, l_pad: int,
+    stage_bases: Optional[bool] = None,
+):
     """Forward sweep: the plain version for CPU tensors, the
     csrc/dense_forward.cu kernel for CUDA tensors. Same outputs as
-    `dense_forward_ref`."""
+    `dense_forward_ref`. `stage_bases` (None: the kernel's choice) is
+    for measuring the two ways tier 1 reads the bases."""
     if _device_kind(qs) == "cpu":
         return dense_forward_ref(qs, ts, qlens, tlens, pen, k_width, l_pad)
     from . import cuda_build
@@ -470,7 +504,8 @@ def dense_forward(qs, ts, qlens, tlens, pen: Penalties, k_width: int, l_pad: int
     scores = torch.empty(B, dtype=torch.int32, device=dev)
     cert = torch.empty(B, dtype=torch.uint8, device=dev)
     planes = torch.empty((2 * l_pad, B, K), dtype=torch.uint16, device=dev)
-    if K > SMEM_MAX_K:
+    design = forward_design(K, l_pad, stage_bases)
+    if design.scratch:
         iscratch = torch.empty((B, 10, K), dtype=torch.int32, device=dev)
         rscratch = torch.empty((B, 2, K), dtype=torch.uint8, device=dev)
         iptr, rptr = iscratch.data_ptr(), rscratch.data_ptr()
@@ -480,12 +515,12 @@ def dense_forward(qs, ts, qlens, tlens, pen: Penalties, k_width: int, l_pad: int
     rc = lib.allwave_dense_forward(
         qs.data_ptr(), ts.data_ptr(), qlens.data_ptr(), tlens.data_ptr(),
         B, l_pad, K, pen.x, pen.o1, pen.e1, pen.o2, pen.e2,
-        int(pen.two_piece),
+        int(pen.two_piece), design.code,
         scores.data_ptr(), cert.data_ptr(), planes.data_ptr(), iptr, rptr,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.check(rc, "dense_forward kernel launch")
-    forward_launches.launched((B, K, l_pad))
+    forward_launches.launched((B, K, l_pad), design)
     return scores, cert.bool(), planes
 
 

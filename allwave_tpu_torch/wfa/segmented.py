@@ -53,6 +53,10 @@ segment_traceback_launches = LaunchCount()
 _I32 = torch.int32
 _P_COLS = 128  # the narrow replay's sub-band offsets are multiples of this
 
+#: widest band whose double-buffered lanes (42 bytes each) the span
+#: kernel keeps in shared memory; wider bands use a global scratch
+SMEM_MAX_K = (200 * 1024) // 42
+
 
 def init_state(B: int, K: int, k0: torch.Tensor) -> torch.Tensor:
     """DP band state at d = 0: (5, B, K) int32, the bands S, I1, D1,
@@ -160,7 +164,7 @@ def dense_span(
         if with_planes
         else None
     )
-    if W > D.SMEM_MAX_K:
+    if W > SMEM_MAX_K:
         iscratch = torch.empty((B, 10, W), dtype=_I32, device=dev)
         rscratch = torch.empty((B, 2, W), dtype=torch.uint8, device=dev)
         iptr, rptr = iscratch.data_ptr(), rscratch.data_ptr()

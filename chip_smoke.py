@@ -6,11 +6,16 @@ Run from the repository root on a machine with one NVIDIA Hopper GPU:
     python3 chip_smoke.py
 
 It builds the nine CUDA kernel libraries from the sources in this
-checkout (one nvcc per source, all at once), drives the port's three
-engines and runs the probes:
+checkout (one nvcc per source, all at once; phase 1 prints every dense
+forward kernel's registers and spill bytes from ptxas and fails if a
+register-band one spills), drives the port's three engines and runs the
+probes:
 
 * the short-pair main path (phases 2-6): the dense forward and
-  traceback kernels against their plain PyTorch versions, the CLI and
+  traceback kernels against their plain PyTorch versions (the forward
+  at every band rung of its three tiers, bands off the ladder, one- and
+  two-piece penalties, edge pairs, both ways tier 1 reads the bases,
+  with every plane entry held to the plain version's), the CLI and
   the AllPairAligner over bench.py's headline data (128 x 1 kb at 2%
   divergence, all 16,256 directed pairs) and a 12 kb escalation case,
   then both kernels again at every shape those runs launched;
@@ -115,7 +120,9 @@ def forward_case(device, scores_str, B, L, K, seed, div, reps, l_pad=None, run_c
     forward's scores, certificates and planes, and the packed bytes of
     the traceback kernel over either plane and of the plain walk + pack
     over the plain plane. The plain forward is timed on the one call
-    that is checked. Returns a result dict."""
+    that is checked. In tier 1 the forward also runs with its bases
+    read the other way (staged in shared memory or not), which must
+    give the same outputs, and is timed so. Returns a result dict."""
     import numpy as np
     import torch
 
@@ -137,7 +144,8 @@ def forward_case(device, scores_str, B, L, K, seed, div, reps, l_pad=None, run_c
     )
     check(torch.equal(s_k, s_p), f"forward scores differ at {at}")
     check(torch.equal(c_k, c_p), f"forward certs differ at {at}")
-    planes_equal = bool(torch.equal(p_k, p_p))
+    check(torch.equal(p_k, p_p), f"forward planes differ at {at}")
+    plane_err = int((p_k.to(torch.int32) - p_p.to(torch.int32)).abs().max())
     t_k = D.dense_traceback(p_k, s_k, c_k, ql, tl, cap)
     t_kp = D.dense_traceback(p_p, s_p, c_p, ql, tl, cap)
     check(torch.equal(t_k, t_kp), f"traceback over the two planes differs at {at}")
@@ -146,6 +154,20 @@ def forward_case(device, scores_str, B, L, K, seed, div, reps, l_pad=None, run_c
     )
     check(torch.equal(t_k, t_p), f"traceback kernel and plain walk differ at {at}")
     del p_p, t_kp
+    design = D.forward_design(K, l_pad)
+    other_ms = None
+    if design.tier == 1:
+        other = not design.stage_bases
+        try:
+            D.forward_design(K, l_pad, other)
+        except ValueError:  # the tables do not fit shared memory
+            other = None
+        if other is not None:
+            s_o, c_o, p_o = D.dense_forward(qs, ts, ql, tl, pen, K, l_pad, other)
+            check(torch.equal(s_o, s_k) and torch.equal(c_o, c_k) and torch.equal(p_o, p_k),
+                  f"forward with stage_bases={other} differs at {at}")
+            del s_o, c_o, p_o
+            other_ms = time_ms(lambda: D.dense_forward(qs, ts, ql, tl, pen, K, l_pad, other), reps)
     ms = time_ms(lambda: D.dense_forward(qs, ts, ql, tl, pen, K, l_pad), reps)
     tb_ms = time_ms(lambda: D.dense_traceback(p_k, s_k, c_k, ql, tl, cap), reps)
     cells = B * 2 * l_pad * K
@@ -153,14 +175,49 @@ def forward_case(device, scores_str, B, L, K, seed, div, reps, l_pad=None, run_c
     active = active_cells(ql.cpu().numpy(), tl.cpu().numpy(), k0.cpu().numpy(), K, 0, 2 * l_pad)
     return {
         "scores": scores_str, "B": B, "L": L, "l_pad": l_pad, "K": K, "run_cap": cap,
-        "certified": int(c_k.sum()), "planes_equal": planes_equal,
-        "max_abs_err": max(int((s_k - s_p).abs().max()),
+        "certified": int(c_k.sum()), "tier": design.tier,
+        "lanes_per_thread": design.lanes_per_thread, "warps_per_pair": design.warps_per_pair,
+        "stage_bases": design.stage_bases, "scratch": design.scratch,
+        "max_abs_err": max(int((s_k - s_p).abs().max()), plane_err,
                            int((t_k.to(torch.int32) - t_p.to(torch.int32)).abs().max())),
-        "tolerance": 0, "ms": ms, "plain_ms": plain_ms,
+        "tolerance": 0, "ms": ms, "plain_ms": plain_ms, "other_bases_ms": other_ms,
         "gcells_s": cells / (ms * 1e6), "plain_gcells_s": cells / (plain_ms * 1e6),
         "traceback_ms": tb_ms, "traceback_plain_ms": tb_plain_ms,
         "active_cells": active, "runs": int(t_k[:, :32].contiguous().view(torch.int32)[:, 1].sum()),
         "traceback_out_bytes": t_k.numel(),
+    }
+
+
+def forward_tier_case(device, scores_str, B, K, l_pad, seed, stage_bases=None):
+    """The forward kernel against its plain version on the edge pairs of
+    testing.batches.edge_batch: scores, certificates and every plane
+    entry, tolerance 0. Returns a result dict with the design it ran."""
+    import numpy as np
+    import torch
+
+    from allwave_tpu_torch.core.scores import parse_scores
+    from allwave_tpu_torch.testing.batches import edge_batch
+    from allwave_tpu_torch.wfa import dense as D
+    from allwave_tpu_torch.wfa.params import resolve_penalties
+
+    pen = resolve_penalties(parse_scores(scores_str))
+    batch = edge_batch(np.random.RandomState(seed), B, l_pad, K)
+    qs, ts, ql, tl = (torch.from_numpy(a).to(device) for a in batch)
+    design = D.forward_design(K, l_pad, stage_bases)
+    s_k, c_k, p_k = D.dense_forward(qs, ts, ql, tl, pen, K, l_pad, stage_bases)
+    s_p, c_p, p_p = D.dense_forward_ref(qs, ts, ql, tl, pen, K, l_pad)
+    at = f"{scores_str} B={B} K={K} l_pad={l_pad} design={design}"
+    check(torch.equal(s_k, s_p), f"forward scores differ at {at}")
+    check(torch.equal(c_k, c_p), f"forward certs differ at {at}")
+    check(torch.equal(p_k, p_p), f"forward planes differ at {at}")
+    return {
+        "scores": scores_str, "B": B, "K": K, "l_pad": l_pad, "tier": design.tier,
+        "lanes_per_thread": design.lanes_per_thread, "warps_per_pair": design.warps_per_pair,
+        "stage_bases": design.stage_bases, "scratch": design.scratch,
+        "infeasible": int((s_k >= D.INF).sum()), "certified": int(c_k.sum()),
+        "max_abs_err": max(int((s_k - s_p).abs().max()),
+                           int((p_k.to(torch.int32) - p_p.to(torch.int32)).abs().max())),
+        "tolerance": 0,
     }
 
 
@@ -505,7 +562,7 @@ def profile_pipeline(seqs, scores_str):
             busy_us += b - end
             end = b
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
-    forward_ms = sum(v for k, v in by_name.items() if "dense_forward_kernel" in k)
+    forward_ms = sum(v for k, v in by_name.items() if "dense_forward" in k)
     return {
         "pairs": len(res), "wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
         "dp_cells": cells, "forward_device_ms": forward_ms,
@@ -518,11 +575,17 @@ def profile_pipeline(seqs, scores_str):
 
 def _short(kernel_name: str) -> str:
     """A kernel's name without its return type, namespace and argument
-    list: `dense_span_kernel<true, false>`."""
-    name = kernel_name.replace("(anonymous namespace)::", "")
+    list: `dense_span_kernel<true, false>`, `dense_forward_regs_kernel<(int)6,
+    (bool)1, (bool)1, (bool)0>`."""
+    name = kernel_name.replace("(anonymous namespace)::", "").replace("<unnamed>::", "")
     if name.startswith("void "):
         name = name[5:]
-    return name.split("(")[0][:60]
+    depth = 0
+    for i, ch in enumerate(name):
+        depth += {"<": 1, ">": -1}.get(ch, 0)
+        if ch == "(" and depth == 0:
+            return name[:i][:80]
+    return name[:80]
 
 
 def main() -> int:
@@ -573,6 +636,16 @@ def main() -> int:
     print(f"phase 1 env: torch {torch.__version__} cuda {torch.version.cuda} | "
           f"{nvcc} | {smi} | kernels built in {build_s:.1f} s "
           f"(nvcc: {cuda_build.build_seconds})", flush=True)
+    # registers and spills of every forward kernel (ptxas -v); the
+    # register-band kernels of tiers 1-2 must not spill
+    usage = cuda_build.ptxas_usage("dense_forward")
+    for fn, u in sorted(usage.items()):
+        print("phase 1 ptxas: " + json.dumps({"kernel": _short(fn), **u}), flush=True)
+    regs = {fn: u for fn, u in usage.items() if "dense_forward_regs_kernel" in fn}
+    check(regs and all(u.get("spill_stores", 1) == 0 and u.get("spill_loads", 1) == 0
+                       for u in regs.values()),
+          f"a register-band forward kernel spills: {regs}")
+    report["forward_ptxas"] = {_short(fn): u for fn, u in usage.items()}
     stamp(1)
 
     # -- phase 2: forward kernel against its plain version ---------------
@@ -580,8 +653,27 @@ def main() -> int:
     for sc in (SCORES, "0,5,8,2", "0,1,1,1"):
         fwd.append(forward_case(dev, sc, B=256, L=1024, K=128, seed=1, div=0.02, reps=5))
     fwd.append(forward_case(dev, SCORES, B=8, L=4096, K=3072, seed=2, div=0.02, reps=2))
-    # wider than SMEM_MAX_K: the bands live in the global scratch
+    # tier 3 with its bands in the global scratch
     fwd.append(forward_case(dev, SCORES, B=4, L=2048, K=6144, seed=3, div=0.05, reps=2))
+    # every rung of tiers 1 and 2 and a tier-3 rung, bands off the ladder
+    # (201 stores its plane a lane at a time; 4500 keeps tier 3's bands
+    # in shared memory), one- and two-piece
+    # penalties, both ways of reading the bases, on edge pairs (|k_end|
+    # = K - 1 where l_pad allows) in batches of 7 (not a multiple of
+    # the 4 pairs a tier-1 block runs)
+    from allwave_tpu_torch.wfa.dense_engine import DenseBandAligner
+
+    tier_cases = [(SCORES, K, None) for K in DenseBandAligner.K_LADDER if K <= 6144]
+    tier_cases += [("0,5,8,2", K, None) for K in (100, 192, 201, 1000, 3072, 4500)]
+    tier_cases += [("0,1,1,1", 192, None), (SCORES, 192, False), (SCORES, 384, False),
+                   ("0,5,8,2", 256, False)]
+    tiers = []
+    for i, (sc, K, stage) in enumerate(tier_cases):
+        l_pad = 256 if K <= 256 else (K if K <= 1024 else 512)
+        tiers.append(forward_tier_case(dev, sc, B=7, K=K, l_pad=l_pad, seed=20 + i,
+                                       stage_bases=stage))
+    check({r["tier"] for r in tiers} == {1, 2, 3}, "phase 2 did not run all three tiers")
+    fwd += tiers
     for r in fwd:
         print("phase 2 forward: " + json.dumps(r), flush=True)
     report["forward"] = fwd
@@ -640,10 +732,16 @@ def main() -> int:
     check(len(res) == 128 * 127, f"{len(res)} results from the pipeline")
     failed = check_alignments(seqs, res, pen, n_sample=16, seed=5)
     check(failed == 0, f"{failed} failed pairs in the pipeline")
+    designs4 = dict(D.forward_launches.designs)
+    check(any(s[1] == 192 for s in designs4)
+          and all(g.tier == 1 for s, g in designs4.items() if s[1] == 192),
+          f"the headline's K = 192 shapes did not all run tier 1: {designs4}")
     p4 = {
         "pairs": len(res), "failed": failed, "cli_s": cli_s, "warm_s": warm_s,
         "warm_alignments_per_s": len(res) / warm_s, "launches": launches,
         "forward_shapes": sorted(D.forward_launches.shapes),
+        "forward_designs": [[*s, g.tier, g.lanes_per_thread, g.warps_per_pair, g.stage_bases]
+                            for s, g in sorted(designs4.items())],
         "traceback_shapes": sorted(D.traceback_launches.shapes),
     }
     main_shapes = [(1000, D.forward_launches.shapes.copy(), D.traceback_launches.shapes.copy())]
@@ -665,9 +763,15 @@ def main() -> int:
     check(failed12 == 0, f"{failed12} failed pairs at 12 kb")
     widest = D.forward_launches.widest_k
     check(widest > 2048, f"widest band {widest} <= 2048: no escalation regime")
+    designs5 = dict(D.forward_launches.designs)
+    check(any(s[1] == 3072 for s in designs5)
+          and all(g.tier == 2 for s, g in designs5.items() if s[1] == 3072),
+          f"the 12 kb K = 3072 shapes did not all run tier 2: {designs5}")
     p5 = {
         "pairs": len(res12), "failed": failed12, "seconds": s12, "widest_k": widest,
         "forward_shapes": sorted(D.forward_launches.shapes),
+        "forward_designs": [[*s, g.tier, g.lanes_per_thread, g.warps_per_pair, g.stage_bases]
+                            for s, g in sorted(designs5.items())],
         "traceback_shapes": sorted(D.traceback_launches.shapes),
     }
     main_shapes.append((12000, D.forward_launches.shapes.copy(),

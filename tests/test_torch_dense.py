@@ -17,7 +17,7 @@ from allwave_tpu.core.scores import parse_scores
 from allwave_tpu.wfa import dense as JD
 from allwave_tpu.wfa import pallas_dense as JP
 from allwave_tpu.wfa.params import resolve_penalties
-from allwave_tpu_torch.testing.batches import random_batch
+from allwave_tpu_torch.testing.batches import edge_batch, random_batch
 from allwave_tpu_torch.wfa import dense as TD
 
 SCORE_SETS = ["0,5,8,2,24,1", "0,4,6,2", "0,1,1,1"]
@@ -34,12 +34,14 @@ def _eq(jax_arr, torch_t):
 @pytest.mark.parametrize(
     "scores_str,K,l_pad,div",
     [(s, 128, 128, 0.05) for s in SCORE_SETS]
-    + [("0,5,8,2,24,1", 384, 256, 0.15), ("0,5,8,2,24,1", 512, 128, 0.2)],
+    + [("0,5,8,2,24,1", 384, 256, 0.15), ("0,5,8,2,24,1", 512, 128, 0.2),
+       ("0,5,8,2,24,1", 192, 128, 0.05), ("0,5,8,2", 200, 128, 0.1)],
 )
 def test_forward_ref_matches_xla(scores_str, K, l_pad, div):
     """Scores, certificates and the FULL plane (every byte, reachable
     or not) equal the XLA scan's; K=384 is a wide band, K=512 covers
-    the whole matrix."""
+    the whole matrix, K=192 is the headline's band and K=200 one off
+    the engine's ladder (the forward kernel takes any K)."""
     pen = resolve_penalties(parse_scores(scores_str))
     batch = random_batch(np.random.RandomState(11), 5, (3 * l_pad) // 4, l_pad, div)
     ja, ta = _both(batch)
@@ -50,6 +52,25 @@ def test_forward_ref_matches_xla(scores_str, K, l_pad, div):
     assert p_t.dtype == torch.uint16 and tuple(p_t.shape) == (2 * l_pad, 5, K)
     _eq(p_j, p_t)
     assert bool(c_t.all())
+
+
+@pytest.mark.parametrize("scores_str,K,l_pad", [("0,5,8,2,24,1", 192, 256), ("0,5,8,2", 101, 128)])
+def test_forward_ref_matches_xla_on_edge_pairs(scores_str, K, l_pad):
+    """The edge pairs the kernel is held to on the card
+    (testing.batches.edge_batch: lengths 0 and 1, |k_end| = K - 1 on
+    both sides, an infeasible pair) give the XLA scan's scores,
+    certificates and full plane."""
+    pen = resolve_penalties(parse_scores(scores_str))
+    batch = edge_batch(np.random.RandomState(K), 7, l_pad, K)
+    assert list(zip(batch[2][:4], batch[3][:4])) == [(0, 0), (1, 1), (0, 3), (l_pad, l_pad)]
+    assert list(np.abs(batch[3][4:] - batch[2][4:])) == [K - 1, K - 1, K]
+    ja, ta = _both(batch)
+    s_j, c_j, p_j = JD.dense_forward(*ja, pen, K, l_pad, True)
+    s_t, c_t, p_t = TD.dense_forward_ref(*ta, pen, K, l_pad)
+    _eq(s_j, s_t)
+    _eq(c_j, c_t)
+    _eq(p_j, p_t)
+    assert int(s_t[6]) >= TD.INF and int(s_t[0]) == 0
 
 
 def test_forward_ref_uncertified_and_infeasible():

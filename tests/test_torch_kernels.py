@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from allwave_tpu_torch.core.scores import parse_scores
-from allwave_tpu_torch.testing.batches import random_batch
+from allwave_tpu_torch.testing.batches import edge_batch, random_batch
 from allwave_tpu_torch.wfa import dense as TD
 from allwave_tpu_torch.wfa.params import resolve_penalties
 
@@ -31,17 +31,32 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+#: (K, tier) for every band rung of the engine up to a tier-3 one, and
+#: bands off the ladder (201: odd, a lane a store; 4500: tier 3 with its
+#: bands in shared memory)
+FORWARD_BANDS = [(128, 1), (192, 1), (256, 1), (320, 1), (384, 1), (512, 2), (768, 2),
+                 (1024, 2), (1536, 2), (2048, 2), (3072, 2), (4096, 2), (6144, 3),
+                 (100, 1), (200, 1), (201, 1), (1000, 2), (4500, 3)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "scores_str,K,l_pad,div",
     [(s, 128, 256, 0.05) for s in SCORE_SETS]
-    + [("0,5,8,2,24,1", 3072, 1024, 0.1), ("0,5,8,2,24,1", 6144, 512, 0.2)],
+    + [("0,5,8,2,24,1", 3072, 1024, 0.1), ("0,5,8,2,24,1", 6144, 512, 0.2)]
+    + [("0,5,8,2,24,1", K, 512, 0.05) for K, _ in FORWARD_BANDS]
+    + [("0,5,8,2", K, 256, 0.05) for K in (192, 1000)],
 )
 def test_forward_kernel_matches_plain(cuda_device, scores_str, K, l_pad, div):
+    """Scores, certificates and every plane entry of random pairs and
+    of the edge pairs (length 0 and 1, |k_end| = K - 1, infeasible) in
+    a batch of 9, not a multiple of the 4 pairs a tier-1 block runs."""
     pen = resolve_penalties(parse_scores(scores_str))
+    rng = np.random.RandomState(K)
+    rand = random_batch(rng, 4, (3 * l_pad) // 4, l_pad, div)
+    edge = edge_batch(rng, 5 if l_pad < K else 7, l_pad, K, div)
     qs, ts, ql, tl = (
-        torch.from_numpy(a).to(cuda_device)
-        for a in random_batch(np.random.RandomState(K), 8, (3 * l_pad) // 4, l_pad, div)
+        torch.from_numpy(np.concatenate([a, b])[:9]).to(cuda_device) for a, b in zip(edge, rand)
     )
     n0 = TD.forward_launches.count
     s_k, c_k, p_k = TD.dense_forward(qs, ts, ql, tl, pen, K, l_pad)
@@ -50,6 +65,35 @@ def test_forward_kernel_matches_plain(cuda_device, scores_str, K, l_pad, div):
     s_p, c_p, p_p = TD.dense_forward_ref(qs, ts, ql, tl, pen, K, l_pad)
     assert torch.equal(s_k, s_p) and torch.equal(c_k, c_p)
     assert torch.equal(p_k, p_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,tier", FORWARD_BANDS)
+def test_forward_design(cuda_device, K, tier):
+    """The C dispatch's tier for each band, recorded beside the launch's
+    shape; tier 1 reads its bases both ways with the same outputs, tier
+    2 only from staged tables; K = 192 runs a warp a pair."""
+    l_pad = 128
+    design = TD.forward_design(K, l_pad)
+    assert design.tier == tier and design.scratch == (tier == 3 and 42 * K > 200 * 1024)
+    assert (design.warps_per_pair == 1) == (tier == 1)
+    if K == 192:
+        assert (design.lanes_per_thread, design.warps_per_pair) == (6, 1)
+    pen = resolve_penalties(parse_scores("0,5,8,2,24,1"))
+    qs, ts, ql, tl = (
+        torch.from_numpy(a).to(cuda_device)
+        for a in edge_batch(np.random.RandomState(K), 6, l_pad, K)
+    )
+    TD.forward_launches.reset()
+    out = TD.dense_forward(qs, ts, ql, tl, pen, K, l_pad)
+    assert TD.forward_launches.designs == {(6, K, l_pad): design}
+    for stage in (False, True):
+        if (tier, stage) in ((2, False), (3, True)):
+            with pytest.raises(ValueError):
+                TD.forward_design(K, l_pad, stage)
+            continue
+        other = TD.dense_forward(qs, ts, ql, tl, pen, K, l_pad, stage_bases=stage)
+        assert all(torch.equal(a, b) for a, b in zip(out, other))
 
 
 @pytest.mark.cuda
