@@ -86,13 +86,14 @@ def cuobjdump() -> str:
     return os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
 
 
-def report():
-    """One dict per loop of every kernel in the libraries."""
+def report(names=None):
+    """One dict per loop of every kernel in the libraries (those of
+    `names`, csrc/<name>.cu, if given)."""
     from ..wfa import cuda_build
 
     rows = []
     cuda_build.build_all()
-    for name in sorted(cuda_build.SIGNATURES):
+    for name in sorted(names or cuda_build.SIGNATURES):
         sass = subprocess.run([cuobjdump(), "-sass", cuda_build._library_path(name)],
                               capture_output=True, text=True, check=True).stdout
         funcs, labels = parse(sass)

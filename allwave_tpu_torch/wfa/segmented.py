@@ -26,14 +26,17 @@ and a hand-written CUDA kernel (csrc/dense_span.cu,
 csrc/segment_traceback.cu). The wrappers `dense_span` and
 `segment_traceback` pick by the tensors' device, as wfa/dense.py does:
 CPU tensors take the plain version, CUDA tensors the kernel and nothing
-else. Launches are counted in `span_launches` and
-`segment_traceback_launches`.
+else. The span kernel has two designs, the sweep's (a thread-block
+cluster a pair) and the replay's (a block a pair); the C entry point
+`allwave_dense_span_design` says which one a span runs, and
+`span_design` reads it. Launches are counted in `span_launches` (with
+each shape's design) and `segment_traceback_launches`.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,7 +47,7 @@ from .dense import INF, LaunchCount, band_geometry
 from .params import Penalties
 
 #: span kernel launches, shapes (B, K, k_sub, l_pad, n_steps, with_planes)
-#: (k_sub = K on a full-band span)
+#: (k_sub = K on a full-band span), each with its `SpanDesign`
 span_launches = LaunchCount()
 #: segment-traceback kernel launches, shapes (B, K, l_pad, n_steps,
 #: run_cap) with K the width of the plane walked (k_sub on a narrow replay)
@@ -52,10 +55,6 @@ segment_traceback_launches = LaunchCount()
 
 _I32 = torch.int32
 _P_COLS = 128  # the narrow replay's sub-band offsets are multiples of this
-
-#: widest band whose double-buffered lanes (42 bytes each) the span
-#: kernel keeps in shared memory; wider bands use a global scratch
-SMEM_MAX_K = (200 * 1024) // 42
 
 
 def init_state(B: int, K: int, k0: torch.Tensor) -> torch.Tensor:
@@ -118,6 +117,63 @@ def dense_span_ref(
     return torch.stack(bands), planes
 
 
+class SpanDesign(NamedTuple):
+    """What csrc/dense_span.cu runs for a span over W lanes of a band K:
+    the fields of the code `allwave_dense_span_design` returns."""
+
+    code: int
+    cluster: bool  # the sweep's cluster kernel (no planes), else the replay's
+    blocks_per_pair: int  # G, the sweep's cluster (1 for the replay)
+    lanes_per_block: int  # Lb, the sweep's lanes a block
+    scratch: bool  # the replay's bands in a global scratch
+
+
+def span_design(K: int, W: int, with_planes: bool, B: int, two_piece: bool) -> SpanDesign:
+    """The span kernel's design for B pairs on a window of W lanes of a
+    band K, from its C dispatch (the sweep's cluster size depends on how
+    many of B's clusters the card holds at once). Raises for a window no
+    design takes."""
+    from . import cuda_build
+
+    code = cuda_build.library("dense_span").allwave_dense_span_design(
+        K, W, int(with_planes), B, int(two_piece)
+    )
+    if code < 0:
+        raise ValueError(f"no span design for K={K} k_sub={W} with_planes={with_planes}")
+    return SpanDesign(code, bool(code & 1), (code >> 1) & 31, code >> 7, bool(code >> 6 & 1))
+
+
+def sweep_max_clusters(K: int, W: int, B: int, two_piece: bool) -> int:
+    """cudaOccupancyMaxActiveClusters of the sweep's design for B pairs
+    at (K, W): how many of its clusters the card holds at once."""
+    from . import cuda_build
+
+    n = cuda_build.library("dense_span").allwave_dense_sweep_max_clusters(
+        K, W, B, int(two_piece)
+    )
+    if n < 0:
+        cuda_build.check(-n, "cudaOccupancyMaxActiveClusters")
+    return n
+
+
+def sweep_barriers(B: int, K: int, W: int, n_steps: int, device, full_fence=False) -> torch.Tensor:
+    """Launch n_steps bare step barriers in the two-piece sweep's launch
+    shape for B pairs at (K, W) (its clusters, threads and shared memory): what
+    the sweep's barrier alone costs a step, or with full_fence what
+    cooperative groups' cluster.sync() would. Returns the (B * G,) int32
+    step count each block reached."""
+    from . import cuda_build
+
+    G = span_design(K, W, False, B, True).blocks_per_pair
+    out = torch.zeros(B * G, dtype=_I32, device=device)
+    rc = cuda_build.library("dense_span").allwave_dense_sweep_barriers(
+        K, W, B, n_steps, int(full_fence), out.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    cuda_build.check(rc, "sweep barrier kernel launch")
+    return out
+
+
 def dense_span(
     qs, ts, qlens, tlens, pen: Penalties, k_width: int, l_pad: int,
     d_lo: int, n_steps: int, state, with_planes: bool, c_lo=None,
@@ -125,11 +181,13 @@ def dense_span(
 ):
     """The span: the plain version for CPU tensors, the
     csrc/dense_span.cu kernel for CUDA tensors (same contract as
-    `dense_span_ref`). `state` may be a view whose (B, K) bands are
-    each contiguous, such as one segment of the checkpoint tensor;
-    `out`, if given, is such a (5, B, W) view and receives the state
-    out. c_lo must lie in [0, K - k_sub] (`narrow_offsets` keeps it
-    there); the kernel clamps it so that no read leaves the state."""
+    `dense_span_ref`): the cluster sweep without planes, the replay
+    kernel with them (`span_design`). `state` may be a view whose
+    (B, K) bands are each contiguous, such as one segment of the
+    checkpoint tensor; `out`, if given, is such a (5, B, W) view and
+    receives the state out. c_lo must lie in [0, K - k_sub]
+    (`narrow_offsets` keeps it there); the kernel clamps it so that no
+    read leaves the state."""
     if D._device_kind(qs) == "cpu":
         st, planes = dense_span_ref(
             qs, ts, qlens, tlens, pen, k_width, l_pad, d_lo, n_steps, state,
@@ -164,7 +222,8 @@ def dense_span(
         if with_planes
         else None
     )
-    if W > SMEM_MAX_K:
+    design = span_design(K, W, with_planes, B, pen.two_piece)
+    if design.scratch:
         iscratch = torch.empty((B, 10, W), dtype=_I32, device=dev)
         rscratch = torch.empty((B, 2, W), dtype=torch.uint8, device=dev)
         iptr, rptr = iscratch.data_ptr(), rscratch.data_ptr()
@@ -175,13 +234,13 @@ def dense_span(
         qs.data_ptr(), ts.data_ptr(), qlens.data_ptr(), tlens.data_ptr(),
         None if c_lo is None else c_lo.data_ptr(),
         B, l_pad, K, W, d_lo, n_steps, pen.x, pen.o1, pen.e1, pen.o2, pen.e2,
-        int(pen.two_piece), int(with_planes),
+        int(pen.two_piece), int(with_planes), design.code,
         state.data_ptr(), state.stride(0), out.data_ptr(), out.stride(0),
         None if planes is None else planes.data_ptr(), iptr, rptr,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.check(rc, "dense_span kernel launch")
-    span_launches.launched((B, K, W, l_pad, n_steps, bool(with_planes)))
+    span_launches.launched((B, K, W, l_pad, n_steps, bool(with_planes)), design)
     return out, planes
 
 

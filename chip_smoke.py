@@ -7,8 +7,9 @@ Run from the repository root on a machine with one NVIDIA Hopper GPU:
 
 It builds the nine CUDA kernel libraries from the sources in this
 checkout (one nvcc per source, all at once; phase 1 prints every dense
-forward kernel's registers and spill bytes from ptxas and fails if a
-register-band one spills), drives the port's three engines and runs the
+forward and span kernel's registers and spill bytes from ptxas, fails
+if a register-band forward kernel spills, and prints the opcodes of the
+cluster sweep's loops), drives the port's three engines and runs the
 probes:
 
 * the short-pair main path (phases 2-6): the dense forward and
@@ -22,9 +23,12 @@ probes:
 * the segmented long-pair path (phases 7-11): the span and
   segment-traceback kernels of the segmented (checkpoint-replay) dense
   engine against their plain versions, on checkpoints the span kernel
-  swept (phases 7-8); bench.py's config 5_100kb (4 x 100 kb at 2%, 12
+  swept, the sweep (the span without planes: a thread-block cluster a
+  pair) at every cluster size its design takes, odd windows and edge
+  pairs (phases 7-8); bench.py's config 5_100kb (4 x 100 kb at 2%, 12
   directed pairs) through the CLI and the AllPairAligner, with a
-  profile: the router sends all 12 pairs to the wavefront engine, whose
+  profile, each span shape's design and the clusters the card holds at
+  once: the router sends all 12 pairs to the wavefront engine, whose
   band ceiling hands every one back to the segmented engine (phase 9);
   4 x 24 kb through both the one-shot dense engine and the segmented
   engine, which must agree exactly (phase 10); and both kernels again
@@ -44,7 +48,9 @@ probes:
   Pallas experiments in scripts/experiments): each probe kernel against
   its plain version at a reduced shape and at the experiment's own
   shape where the plain version is quick, then every variant timed at
-  the experiment's shape, as `python -m allwave_tpu_torch.probes` does.
+  the experiment's shape, as `python -m allwave_tpu_torch.probes` does;
+  and the cluster sweep's barrier alone, timed in the sweep's launch
+  shape at every design phases 7 and 11 ran.
 
 Each wrapper counts its launches by shape; every count is set to 0 just
 before a path is driven and read just after. Every kernel is held to its
@@ -73,6 +79,10 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out", "smoke")
 SCORES = "0,5,8,2,24,1"
+#: the 12 scores of bench.py's config 5_100kb (seed 17) under SCORES:
+#: exact scores, so any kernel that changes one is wrong
+SCORES_5_100KB = [11819, 11819, 11876, 11876, 11910, 11910, 23365, 23365, 23372, 23372,
+                  23445, 23445]
 
 
 class PhaseFailed(Exception):
@@ -298,13 +308,16 @@ def span_case(device, B, L, l_pad, K, k_sub, C, seg, seed, div, reps, run_caps=(
             planes_k = pl_k
         del st_p, pl_p
         ms = time_ms(lambda: TS.dense_span(*args, with_planes, **kw), reps)
+        design = TS.span_design(K, W, with_planes, B, pen.two_piece)
         cells = B * C * W
         k_lo = k0 + (c_lo if narrow else 0)
         active = active_cells(ql.cpu().numpy(), tl.cpu().numpy(), k_lo.cpu().numpy(), W, d_lo, C)
         spans.append({
             "B": B, "l_pad": l_pad, "K": K, "k_sub": W, "d_lo": d_lo, "n_steps": C,
-            "with_planes": with_planes, "max_abs_err": err, "tolerance": 0,
-            "ms": ms, "plain_ms": plain_ms, "gcells_s": cells / (ms * 1e6),
+            "with_planes": with_planes, "G": design.blocks_per_pair,
+            "Lb": design.lanes_per_block, "max_abs_err": err, "tolerance": 0,
+            "ms": ms, "plain_ms": plain_ms, "us_per_step": 1e3 * ms / C,
+            "gcells_s": cells / (ms * 1e6),
             "plain_gcells_s": cells / (plain_ms * 1e6), "active_cells": active,
         })
     for cap in run_caps:
@@ -335,6 +348,51 @@ def span_case(device, B, L, l_pad, K, k_sub, C, seg, seed, div, reps, run_caps=(
             "max_abs_err": err, "tolerance": 0, "ms": ms, "plain_ms": plain_ms,
         })
     return spans, tbs
+
+
+def sweep_case(device, scores_str, B, K, k_sub, l_pad, C, seg, seed, edge, reps):
+    """The sweep (the span without planes, the cluster kernel) against
+    its plain version at one shape, tolerance 0: from a checkpoint the
+    kernel swept to segment `seg`, one span of C steps at the full band
+    (k_sub None) or on a window of k_sub lanes at per-pair offsets (odd
+    ones among them), on random pairs or on the edge pairs of
+    testing.batches.edge_batch (lengths 0 and 1, |k_end| = K - 1, an
+    infeasible pair). Returns a result dict with the design it ran."""
+    import numpy as np
+    import torch
+
+    from allwave_tpu_torch.core.scores import parse_scores
+    from allwave_tpu_torch.testing.batches import edge_batch, random_batch
+    from allwave_tpu_torch.wfa import segmented as TS
+    from allwave_tpu_torch.wfa.params import resolve_penalties
+
+    pen = resolve_penalties(parse_scores(scores_str))
+    rng = np.random.RandomState(seed)
+    arrays = (edge_batch(rng, B, l_pad, K) if edge else
+              random_batch(rng, B, l_pad - 64, l_pad, 0.02, min_len=(3 * l_pad) // 4))
+    qs, ts, ql, tl = (torch.from_numpy(a).to(device) for a in arrays)
+    _, _, ckpts = TS.dense_sweep_ckpt(qs, ts, ql, tl, pen, K, l_pad, C, n_seg=seg + 1)
+    W = k_sub or K
+    c_lo = None
+    if k_sub is not None:
+        c_lo = torch.tensor([(129 * i) % (K - W + 1) for i in range(B)], dtype=torch.int32,
+                            device=device)
+    args = (qs, ts, ql, tl, pen, K, l_pad, seg * C, C, ckpts[:, seg], False)
+    kw = dict(c_lo=c_lo, k_sub=k_sub)
+    st_k, _ = TS.dense_span(*args, **kw)
+    (st_p, _), plain_ms = timed_once(lambda: TS.dense_span_ref(*args, **kw))
+    at = f"{scores_str} B={B} K={K} k_sub={W} l_pad={l_pad} edge={edge}"
+    check(torch.equal(st_k, st_p), f"sweep states differ at {at}")
+    design = TS.span_design(K, W, False, B, pen.two_piece)
+    check(design.cluster, f"the sweep did not take the cluster design at {at}")
+    ms = time_ms(lambda: TS.dense_span(*args, **kw), reps)
+    return {
+        "scores": scores_str, "B": B, "K": K, "k_sub": W, "l_pad": l_pad, "d_lo": seg * C,
+        "n_steps": C, "edge": edge, "G": design.blocks_per_pair, "Lb": design.lanes_per_block,
+        "max_clusters": TS.sweep_max_clusters(K, W, B, pen.two_piece),
+        "max_abs_err": int((st_k - st_p).abs().max()), "tolerance": 0, "ms": ms,
+        "plain_ms": plain_ms, "us_per_step": 1e3 * ms / C,
+    }
 
 
 def wf_inputs(device, scores_str, l_pad, K, seed, div=0.03):
@@ -575,7 +633,7 @@ def profile_pipeline(seqs, scores_str):
 
 def _short(kernel_name: str) -> str:
     """A kernel's name without its return type, namespace and argument
-    list: `dense_span_kernel<true, false>`, `dense_forward_regs_kernel<(int)6,
+    list: `dense_sweep_cluster_kernel<true>`, `dense_forward_regs_kernel<(int)6,
     (bool)1, (bool)1, (bool)0>`."""
     name = kernel_name.replace("(anonymous namespace)::", "").replace("<unnamed>::", "")
     if name.startswith("void "):
@@ -646,6 +704,23 @@ def main() -> int:
                        for u in regs.values()),
           f"a register-band forward kernel spills: {regs}")
     report["forward_ptxas"] = {_short(fn): u for fn, u in usage.items()}
+    span_usage = cuda_build.ptxas_usage("dense_span")
+    for fn, u in sorted(span_usage.items()):
+        print("phase 1 ptxas: " + json.dumps({"kernel": _short(fn), **u}), flush=True)
+    report["span_ptxas"] = {_short(fn): u for fn, u in span_usage.items()}
+    # the cluster sweep's loops (cuobjdump -sass): its bands and tables
+    # in shared memory move by LDS/STS; generic loads only fetch the
+    # neighbour blocks' edge lanes (three each side)
+    from allwave_tpu_torch.probes import sass as SA
+
+    sweep_loops = [r for r in SA.report(["dense_span"]) if "dense_sweep_cluster_kernel" in r["function"]]
+    for r in sweep_loops:
+        print("phase 1 sweep loop: " + json.dumps(r), flush=True)
+    generic = max((sum(n for op, n in r["ops"].items() if op == "LD" or op.startswith("LD."))
+                   for r in sweep_loops), default=0)
+    check(any("LDS" in r["ops"] and "STS" in r["ops"] for r in sweep_loops) and generic <= 6,
+          f"the cluster sweep's loops do not keep their bands in shared memory "
+          f"({generic} generic loads in a loop)")
     stamp(1)
 
     # -- phase 2: forward kernel against its plain version ---------------
@@ -817,12 +892,31 @@ def main() -> int:
             tb8 += tbr
     for r in span7:
         print("phase 7 span: " + json.dumps(r), flush=True)
+    # the sweep at every cluster size its design takes on the engine's
+    # ladder (384: 1 block a pair ... 24576: 16 where the card holds the
+    # batch's clusters at once, else 8), an odd band, an odd window at
+    # odd offsets, and the edge pairs on an odd cluster
+    sweep7 = []
+    for i, (sc, K, k_sub, edge, B) in enumerate((
+            (SCORES, 384, None, False, 8), (SCORES, 1536, None, False, 8),
+            (SCORES, 3072, None, False, 8), ("0,5,8,2", 4096, None, False, 8),
+            (SCORES, 6144, None, False, 8), (SCORES, 12288, None, False, 8),
+            (SCORES, 24576, None, False, 6), (SCORES, 24576, None, False, 8),
+            ("0,1,1,1", 3071, None, False, 8), (SCORES, 6144, 4481, False, 8),
+            (SCORES, 1025, None, True, 8), ("0,5,8,2", 8191, None, True, 8))):
+        r = sweep_case(dev, sc, B=B, K=K, k_sub=k_sub, l_pad=8192, C=C, seg=2, seed=70 + i,
+                       edge=edge, reps=3)
+        print("phase 7 sweep: " + json.dumps(r), flush=True)
+        sweep7.append(r)
+    sizes7 = {r["G"] for r in sweep7}
+    check(sizes7 >= {1, 2, 3, 4, 5, 6, 8} and max(sizes7) > 8,
+          f"phase 7 did not run every cluster size: {sorted(sizes7)}")
     # -- phase 8: the segment-traceback kernel on those segments' planes
     check(any(r["overflowed"] > 0 for r in tb8 if r["run_cap"] == 4),
           "run_cap=4 walks did not overflow")
     for r in tb8:
         print("phase 8 segment traceback: " + json.dumps(r), flush=True)
-    report["span"], report["segment_traceback"] = span7, tb8
+    report["span"], report["segment_traceback"] = span7 + sweep7, tb8
     stamp("7-8")  # one helper runs both phases' cases
 
     # -- phase 9: the long-pair path, bench.py config 5_100kb -------------
@@ -843,16 +937,25 @@ def main() -> int:
     rc = cli.main(["-i", fasta100, "-p", "none", "-o", paf100, "--no-progress"])
     torch.cuda.synchronize()
     cli100_s = time.perf_counter() - t0
+    span_shapes = dict(TS.span_launches.shapes)
+    span_designs = dict(TS.span_launches.designs)
     launches_long = {
-        "dense_span": TS.span_launches.count,
+        "dense_span_sweep": sum(n for sh, n in span_shapes.items() if not sh[5]),
+        "dense_span_replay": sum(n for sh, n in span_shapes.items() if sh[5]),
         "segment_traceback": TS.segment_traceback_launches.count,
     }
-    span_shapes = dict(TS.span_launches.shapes)
     tb_shapes = dict(TS.segment_traceback_launches.shapes)
     widest100 = TS.span_launches.widest_k
     check(rc == 0, f"cli exit code {rc} on 5_100kb")
     check(all(v > 0 for v in launches_long.values()),
           f"the long path did not launch both kernels: {launches_long}")
+    check(all(g.cluster == (not sh[5]) for sh, g in span_designs.items()),
+          f"a sweep span did not take the cluster design, or a replay did: {span_designs}")
+    sweep_clusters = {
+        f"K={sh[1]} k_sub={sh[2]} G={g.blocks_per_pair} Lb={g.lanes_per_block}":
+            TS.sweep_max_clusters(sh[1], sh[2], sh[0], pen.two_piece)
+        for sh, g in sorted(span_designs.items()) if g.cluster
+    }
     # every 5_100kb hint needs a band above the wavefront k_max: all 12
     # pairs go through the router to the wavefront engine and fall back
     fallbacks100 = TW.wf_stats.fallbacks
@@ -874,25 +977,33 @@ def main() -> int:
     check(len(res100) == 12, f"{len(res100)} results from the pipeline on 5_100kb")
     failed100 = check_alignments(seqs100, res100, pen, n_sample=0, seed=7)
     check(failed100 == 0, f"{failed100} failed pairs on 5_100kb")
+    scores100 = sorted(r.score for r in res100)
+    check(scores100 == SCORES_5_100KB, f"5_100kb scores {scores100}, expected {SCORES_5_100KB}")
     p9 = {
         "pairs": len(res100), "failed": failed100, "cli_s": cli100_s, "warm_s": warm100_s,
         "warm_alignments_per_s": len(res100) / warm100_s, "widest_k": widest100,
         "launches": launches_long, "dense_forward_launches": D.forward_launches.count,
         "wavefront_fallbacks": fallbacks100,
         "span_shapes": sorted(span_shapes.items()), "segment_traceback_shapes": sorted(tb_shapes.items()),
-        "scores": sorted(r.score for r in res100),
+        "span_designs": [[*sh, g.cluster, g.blocks_per_pair, g.lanes_per_block, g.scratch]
+                         for sh, g in sorted(span_designs.items())],
+        "sweep_max_clusters": sweep_clusters, "scores": scores100,
     }
     print("phase 9 long path: " + json.dumps(p9), flush=True)
     report["long_path"] = p9
     TS.span_launches.reset()
     prof100 = profile_pipeline(seqs100, SCORES)
     if prof100:
-        # DP cells the span kernel computed in the profiled run, by mode
-        for mode, planes in (("sweep", False), ("replay", True)):
+        # DP cells the span kernel computed in the profiled run, by mode:
+        # the sweep's cluster kernel and the replay's one-block kernel
+        by_k = prof100["device_ms_by_kernel"]
+        check(not any(k.startswith("dense_span_kernel<") and k.endswith("false>") for k in by_k),
+              "the one-block span kernel ran without planes in the profiled run")
+        for mode, planes, tag in (("sweep", False, "dense_sweep_cluster_kernel<"),
+                                  ("replay", True, "dense_span_kernel<")):
             cells = sum(n * sh[0] * sh[2] * sh[4] for sh, n in TS.span_launches.shapes.items()
                         if sh[5] == planes)
-            ms = sum(v for k, v in prof100["device_ms_by_kernel"].items()
-                     if k.startswith(f"dense_span_kernel<") and k.endswith(f"{str(planes).lower()}>"))
+            ms = sum(v for k, v in by_k.items() if k.startswith(tag))
             prof100[f"{mode}_cells"] = cells
             prof100[f"{mode}_device_ms"] = ms
             prof100[f"{mode}_gcells_s"] = cells / (ms * 1e6) if ms else None
@@ -954,7 +1065,10 @@ def main() -> int:
     stamp(11)
     # the kernel line's times: the long path's widest full-band sweep
     # span and its widest band's replay walk
-    sweep = max((r for r in span11 if not r["with_planes"]), key=lambda r: (r["K"], r["k_sub"]))
+    path_shapes = {(K, W, planes) for (_, K, W, _, _, planes) in span_shapes}
+    on_path = [r for r in span11 if (r["K"], r["k_sub"], r["with_planes"]) in path_shapes]
+    sweep = max((r for r in on_path if not r["with_planes"]), key=lambda r: (r["K"], r["k_sub"]))
+    replay = max((r for r in on_path if r["with_planes"]), key=lambda r: (r["K"], r["k_sub"]))
     walk = max(tb11, key=lambda r: (r["K"], -r["run_cap"]))
 
     # -- phase 12: the wavefront span kernel against its plain version at
@@ -1237,12 +1351,36 @@ def main() -> int:
         print("phase 16 bound: " + json.dumps({"kernel": "dense_forward", **{
             k: r[k] for k in ("B", "K", "l_pad", "ms")}, **fwd_bound_of(r)}), flush=True)
     for r in span11:
-        print("phase 16 bound: " + json.dumps({"kernel": "dense_span", **{
-            k: r[k] for k in ("B", "K", "k_sub", "l_pad", "n_steps", "with_planes", "ms")},
+        name = "dense_span_replay" if r["with_planes"] else "dense_span_sweep"
+        print("phase 16 bound: " + json.dumps({"kernel": name, **{
+            k: r[k] for k in ("B", "K", "k_sub", "l_pad", "n_steps", "G", "Lb", "ms", "us_per_step")},
             **span_bound_of(r)}), flush=True)
+    # the cluster sweep's barrier alone: n_steps bare barriers in the
+    # sweep's launch shape (clusters, threads, shared memory) at every
+    # design phases 7 and 11 ran, beside the sweep's own us a step
+    # (phase 11's bound lines)
+    barrier16 = []
+    for B, K, W in sorted({(r["B"], r["K"], r["k_sub"]) for r in span11 if not r["with_planes"]}
+                          | {(r["B"], r["K"], r["k_sub"]) for r in sweep7}):
+        n = 2048
+        out = TS.sweep_barriers(B, K, W, n, dev)
+        torch.cuda.synchronize()
+        check(bool((out == n).all()), f"the barrier kernel stopped early at B={B} K={K} W={W}")
+        ms = time_ms(lambda: TS.sweep_barriers(B, K, W, n, dev), 5)
+        # beside it, cooperative groups' cluster.sync(), whose release
+        # arrive fences the whole GPU's memory
+        full_ms = time_ms(lambda: TS.sweep_barriers(B, K, W, n, dev, full_fence=True), 5)
+        g = TS.span_design(K, W, False, B, True)
+        row = {"B": B, "K": K, "k_sub": W, "G": g.blocks_per_pair, "Lb": g.lanes_per_block,
+               "n_steps": n, "ms": ms, "us_per_step": 1e3 * ms / n,
+               "cluster_sync_us_per_step": 1e3 * full_ms / n}
+        print("phase 16 barrier: " + json.dumps(row), flush=True)
+        barrier16.append(row)
+    report["sweep_barriers"] = barrier16
     fwd_bound = fwd_bound_of(head)
     tb_bound = bnd(head["runs"] * WALK_OPS, 2 * head["runs"] + head["traceback_out_bytes"])
-    span_bound = span_bound_of(sweep)
+    sweep_bound = span_bound_of(sweep)
+    replay_bound = span_bound_of(replay)
     walk_bound = bnd(walk["runs"] * WALK_OPS, 2 * walk["runs"])
     wf_bound = bnd(wf_sweep["lane_levels"] * WF_LEVEL_OPS,
                    wf_sweep["ckpt_bytes"] + 2 * wf_sweep["B"] * wf_sweep["l_pad"])
@@ -1267,12 +1405,22 @@ def main() -> int:
             "ms": head["traceback_ms"], "plain_ms": head["traceback_plain_ms"], **tb_bound,
         },
         {
-            "name": "dense_span", "route": "cuda",
+            "name": "dense_span_sweep", "route": "cuda",
             "source": "allwave_tpu_torch/csrc/dense_span.cu",
-            "replaces": "allwave_tpu/wfa/pallas_span.py:208 (_span_call)",
-            "launches": launches_long["dense_span"],
-            "max_abs_err": max(r["max_abs_err"] for r in span7 + span11),
-            "ms": sweep["ms"], "plain_ms": sweep["plain_ms"], **span_bound,
+            "replaces": "allwave_tpu/wfa/pallas_span.py:208 (_span_call, with_choices=False); "
+                        "allwave_tpu/wfa/pallas_span_c2.py:217 (dense_span_pallas_c2)",
+            "launches": launches_long["dense_span_sweep"],
+            "max_abs_err": max(r["max_abs_err"] for r in span7 + span11 + sweep7
+                               if not r.get("with_planes")),
+            "ms": sweep["ms"], "plain_ms": sweep["plain_ms"], **sweep_bound,
+        },
+        {
+            "name": "dense_span_replay", "route": "cuda",
+            "source": "allwave_tpu_torch/csrc/dense_span.cu",
+            "replaces": "allwave_tpu/wfa/pallas_span.py:208 (_span_call, with_choices=True)",
+            "launches": launches_long["dense_span_replay"],
+            "max_abs_err": max(r["max_abs_err"] for r in span7 + span11 if r["with_planes"]),
+            "ms": replay["ms"], "plain_ms": replay["plain_ms"], **replay_bound,
         },
         {
             "name": "segment_traceback", "route": "cuda",

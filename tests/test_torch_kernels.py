@@ -201,6 +201,63 @@ def test_span_kernel_matches_plain(cuda_device, scores_str, K, k_sub):
     assert TS.span_launches.count == n0 + 2
 
 
+#: (scores, K, k_sub, G): the sweep's cluster design for 4 pairs at the
+#: engine's bands 384, 3072, 6144, 8192, 12288 and 16384 (clusters above
+#: 8 blocks where an H100 holds the 4 clusters at once), an odd full band
+#: (a short odd last block) and an odd window at per-pair offsets
+SWEEP_CASES = [("0,5,8,2,24,1", 384, None, 1), ("0,5,8,2,24,1", 3072, None, 3),
+               ("0,4,6,2", 6144, None, 6), ("0,5,8,2,24,1", 8192, None, 8),
+               ("0,5,8,2,24,1", 12288, None, 12), ("0,5,8,2,24,1", 16384, None, 16),
+               ("0,1,1,1", 3071, None, 3), ("0,5,8,2,24,1", 6144, 4481, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scores_str,K,k_sub,G", SWEEP_CASES)
+def test_sweep_kernel_matches_plain(cuda_device, scores_str, K, k_sub, G):
+    """The sweep (a span without planes) runs the cluster kernel at the
+    design's G and gives dense_span_ref's end state exactly, over an
+    even and an odd number of steps from a kernel-made checkpoint; the
+    launch records its design."""
+    from allwave_tpu_torch.wfa import segmented as TS
+
+    l_pad, C, seg = 1024, 128, 5
+    W = k_sub or K
+    pen, batch, _, ckpts = _segment_inputs(cuda_device, scores_str, 4, l_pad, K, C, K, 0.05)
+    design = TS.span_design(K, W, False, 4, pen.two_piece)
+    assert design.cluster and design.blocks_per_pair == G and not design.scratch
+    assert design.lanes_per_block % 2 == 0 and -(-W // design.lanes_per_block) == G
+    c_lo = None
+    if k_sub is not None:
+        c_lo = torch.tensor([0, 1, 640, K - k_sub], dtype=torch.int32, device=cuda_device)
+    for n_steps in (C, 67):
+        TS.span_launches.reset()
+        st_k, pl_k = TS.dense_span(*batch, pen, K, l_pad, seg * C, n_steps, ckpts[:, seg], False,
+                                   c_lo=c_lo, k_sub=k_sub)
+        st_p, _ = TS.dense_span_ref(*batch, pen, K, l_pad, seg * C, n_steps, ckpts[:, seg], False,
+                                    c_lo=c_lo, k_sub=k_sub)
+        torch.cuda.synchronize()
+        assert pl_k is None and torch.equal(st_k, st_p)
+        assert TS.span_launches.designs == {(4, K, W, l_pad, n_steps, False): design}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scores_str,K,l_pad", [("0,5,8,2,24,1", 384, 512), ("0,4,6,2", 1025, 1024)])
+def test_sweep_kernel_edge_pairs_match_cpu(cuda_device, scores_str, K, l_pad):
+    """The whole checkpoint sweep of the edge pairs (lengths 0 and 1,
+    |k_end| = K - 1 where the band clips, an infeasible pair) on the
+    card equals the plain sweep on the CPU: scores, certificates and
+    every checkpoint (K = 1025: two blocks, the last one odd)."""
+    from allwave_tpu_torch.wfa import segmented as TS
+
+    pen = resolve_penalties(parse_scores(scores_str))
+    arrays = edge_batch(np.random.RandomState(K), 7, l_pad, K, 0.05)
+    gpu = TS.dense_sweep_ckpt(*(torch.from_numpy(a).to(cuda_device) for a in arrays),
+                              pen, K, l_pad, 128)
+    cpu = TS.dense_sweep_ckpt(*map(torch.from_numpy, arrays), pen, K, l_pad, 128)
+    for a, b in zip(gpu, cpu):
+        assert torch.equal(a.cpu(), b)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("run_cap,k_sub", [(512, None), (3, None), (512, 640)])
 def test_segment_traceback_kernel_matches_plain(cuda_device, run_cap, k_sub):

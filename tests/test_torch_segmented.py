@@ -114,6 +114,147 @@ def test_sweep_and_span_match_xla(scores_str):
     _eq(rn_j, (p >> 8).to(torch.uint8))
 
 
+def _cluster_sweep(qs, ts, qlens, tlens, pen, K, l_pad, d_lo, n_steps, state, G,
+                   c_lo=None, k_sub=None, stretch=32):
+    """A plain emulation of csrc/dense_span.cu's sweep schedule
+    (`dense_sweep_cluster_kernel`), to hold its index algebra on the CPU:
+    the window of W lanes split into G blocks of Lb (even) lanes, each
+    block's five bands parity-packed [band][lane parity][lane // 2] and
+    updated in place, only the lanes of d's parity inside the matrix
+    moving, a block's edge lanes reading the neighbour block's edge lane
+    (INF past the window), the bases read from tables staged every
+    `stretch` steps (the kernel's SW_STRETCH is 4096; a small one
+    restages within a span here). Returns the (5, B, W) state."""
+    INF = 2**29
+    W = K if c_lo is None else k_sub
+    B = qs.shape[0]
+    Lb = -(-W // G)
+    Lb += Lb & 1
+    assert -(-W // Lb) == G, "every block holds lanes"
+    Lh, tbl = Lb // 2, (stretch + Lb) // 2 + 2
+    n = [min(Lb, W - r * Lb) for r in range(G)]
+    out = torch.empty((5, B, W), dtype=torch.int32)
+    for b in range(B):
+        qlen, tlen = int(qlens[b]), int(tlens[b])
+        k_end = tlen - qlen
+        k0 = min(0, k_end) - ((K - 1 - abs(k_end)) >> 1)
+        k0 -= k0 & 1
+        col0 = 0 if c_lo is None else min(max(int(c_lo[b]), 0), K - W)
+        packed = torch.full((G, 5, 2, Lh), -7, dtype=torch.int32)  # -7: never read
+        for r in range(G):
+            j = torch.arange(n[r])
+            packed[r][:, j & 1, j >> 1] = state[:, b, col0 + r * Lb + j]
+        q, t = qs[b].long(), ts[b].long()
+        inf3 = torch.full((3,), INF, dtype=torch.int32)
+        for s in range(n_steps):
+            d = d_lo + 1 + s
+            if s % stretch == 0:
+                tables = []
+                for r in range(G):
+                    kb = k0 + col0 + r * Lb
+                    vmin, hmin = (d - kb - (Lb - 1)) >> 1, (d + kb) >> 1
+                    qi = (qlen - (vmin + torch.arange(tbl))).clamp(0, l_pad - 1)
+                    qt = q[(qlen - 1 - qi).clamp(0, l_pad - 1)]
+                    tt = t[(hmin + torch.arange(tbl) - 1).clamp(0, l_pad - 1)]
+                    tables.append((vmin, hmin, qt, tt))
+            for r in range(G):
+                kb = k0 + col0 + r * Lb
+                p = (d - kb) & 1
+                cnt = (n[r] - p + 1) >> 1
+                kmin, kmax = max(-d, d - 2 * qlen), min(d, 2 * tlen - d)
+                i_lo, i_hi = max(0, (kmin - kb - p + 1) >> 1), min(cnt - 1, (kmax - kb - p) >> 1)
+                if i_lo > i_hi:
+                    continue
+                i = torch.arange(i_lo, i_hi + 1)
+                j = 2 * i + p
+                oth, own = packed[r, :, 1 - p], packed[r, :, p]
+                left_in, right_in = j > 0, j + 1 < n[r]
+                li, ri = (i + p - 1).clamp(min=0), (i + p).clamp(max=Lh - 1)
+                # the neighbours' edge lanes: the left block's last (odd,
+                # the last of its half 1), the right block's first; this
+                # step writes the other half, so the order of blocks
+                # within a step does not matter
+                halo_l = packed[r - 1, [0, 1, 3], 1, Lh - 1] if r > 0 else inf3
+                halo_r = packed[r + 1, [0, 2, 4], 0, 0] if r < G - 1 else inf3
+                s_l, i1_l, i2_l = (torch.where(left_in, oth[band, li], halo_l[x])
+                                   for x, band in enumerate((0, 1, 3)))
+                s_r, d1_r, d2_r = (torch.where(right_in, oth[band, ri], halo_r[x])
+                                   for x, band in enumerate((0, 2, 4)))
+                i1 = torch.minimum(s_l + (pen.o1 + pen.e1), i1_l + pen.e1)
+                d1 = torch.minimum(s_r + (pen.o1 + pen.e1), d1_r + pen.e1)
+                best = torch.minimum(i1, d1)
+                if pen.two_piece:
+                    i2 = torch.minimum(s_l + (pen.o2 + pen.e2), i2_l + pen.e2)
+                    d2 = torch.minimum(s_r + (pen.o2 + pen.e2), d2_r + pen.e2)
+                    best = torch.minimum(best, torch.minimum(i2, d2))
+                else:
+                    i2, d2 = own[3, i], own[4, i]
+                vmin, hmin, qt, tt = tables[r]
+                v, h = ((d - kb - p) >> 1) - i, ((d + kb + p) >> 1) + i
+                assert int((v - vmin).min()) >= 0 and int((h - hmin).max()) < tbl
+                match = qt[v - vmin] == tt[h - hmin]
+                diag = torch.where((v > 0) & (h > 0), own[0, i] + torch.where(match, 0, pen.x), INF)
+                new = [x.clamp(max=INF).to(torch.int32)
+                       for x in (torch.minimum(diag, best), i1, d1, i2, d2)]
+                for band in range(5):
+                    own[band, i] = new[band]
+        for r in range(G):
+            j = torch.arange(n[r])
+            out[:, b, r * Lb + j] = packed[r][:, j & 1, j >> 1]
+    return out
+
+
+@pytest.mark.parametrize(
+    "scores_str,K,G,seg,n_steps,edge",
+    [
+        ("0,5,8,2,24,1", 201, 8, 2, 67, False),  # odd W, a short last block of 19
+        ("0,4,6,2", 201, 3, 2, 64, False),  # one-piece: I2, D2 pass through
+        ("0,1,1,1", 200, 1, 3, 33, False),  # one block
+        ("0,5,8,2,24,1", 127, 3, 0, 97, True),  # edge pairs from d = 0
+    ],
+)
+def test_cluster_sweep_schedule_matches_xla(scores_str, K, G, seg, n_steps, edge):
+    """The sweep kernel's cluster schedule, emulated, gives the XLA
+    span's end state exactly at full band, from a checkpoint of the
+    reference's sweep: random pairs at d_lo > 0, and from d = 0 the edge
+    pairs of testing.batches.edge_batch (lengths 0 and 1, |k_end| =
+    K - 1 where the band clips, infeasible)."""
+    from allwave_tpu_torch.testing.batches import edge_batch
+
+    pen = _pen(scores_str)
+    l_pad, C = 256, 64
+    if edge:
+        arrays = edge_batch(np.random.RandomState(K), 7, l_pad, K, 0.05)
+        ja, ta = tuple(map(jnp.asarray, arrays)), tuple(map(torch.from_numpy, arrays))
+    else:
+        ja, ta = _batch(K + G, 4, 240, l_pad, 0.08)
+    _, _, ck_j = JS.dense_sweep_ckpt(*ja, pen, K, l_pad, C, impl="xla")
+    st_j, _ = JS.dense_span_xla(
+        *ja, pen, K, l_pad, jnp.int32(seg * C), n_steps, tuple(c[seg] for c in ck_j), False
+    )
+    st_e = _cluster_sweep(*ta, pen, K, l_pad, seg * C, n_steps, _state(ck_j, seg), G)
+    for comp in range(5):
+        _eq(st_j[comp], st_e[comp])
+
+
+@pytest.mark.parametrize(
+    "scores_str,G,c_lo", [("0,5,8,2,24,1", 8, (0, 128, 183, 61)), ("0,4,6,2", 3, (7, 0, 100, 183))]
+)
+def test_cluster_sweep_schedule_window_matches_plain(scores_str, G, c_lo):
+    """The emulated schedule on a window of k_sub = 201 lanes of a band of
+    384 at per-pair offsets, odd ones included (the window's first lane
+    then has odd k), over 65 steps: the end state equals dense_span_ref's
+    (which dense_span_xla does not take) exactly."""
+    pen = _pen(scores_str)
+    l_pad, K, k_sub, C, seg = 256, 384, 201, 64, 2
+    _, ta = _batch(G, 4, 250, l_pad, 0.1)
+    _, _, ck = TS.dense_sweep_ckpt(*ta, pen, K, l_pad, C)
+    c = torch.tensor(c_lo, dtype=torch.int32)
+    st_p, _ = TS.dense_span_ref(*ta, pen, K, l_pad, seg * C, 65, ck[:, seg], False, c_lo=c, k_sub=k_sub)
+    st_e = _cluster_sweep(*ta, pen, K, l_pad, seg * C, 65, ck[:, seg], G, c_lo=c, k_sub=k_sub)
+    assert torch.equal(st_p, st_e)
+
+
 def test_sweep_bound_and_infeasible():
     """A cut-short sweep (n_seg below the matrix) leaves long pairs
     infeasible; a band too narrow for the length difference gives INF."""
