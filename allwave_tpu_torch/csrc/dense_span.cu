@@ -11,45 +11,59 @@
 //
 // What bounds it on an H100: a span is a chain of n_steps dependent
 // anti-diagonal steps per pair, each a few dozen integer ops per band
-// lane and a barrier. The long path's sweep runs few pairs (12 at
-// 100 kb) on very wide bands (K up to 24576), so the time is the chain
-// of steps, each as long as the lanes one SM walks plus its barrier;
-// the replay adds one 2-byte plane store per lane and step.
+// lane and a barrier. The long path runs few pairs (12 at 100 kb) on
+// wide bands (the sweep's K up to 24576, the replay's window k_sub =
+// 4480), so the time is the chain of steps, each as long as the lanes
+// one SM walks plus its barrier; the replay adds a plane entry (19 more
+// issue slots) and one 2-byte store per lane and step.
 //
-// Two designs, chosen in one place (`choose` below, exported as
-// allwave_dense_span_design):
+// Two designs, both a thread-block cluster of G blocks a pair, chosen
+// in one place (`choose` below, exported as allwave_dense_span_design).
+// Block r owns the window's lanes [r Lb, min((r+1) Lb, W)), Lb even, so
+// only the last block is short; G <= 16 where the card holds every
+// pair's cluster at once (above 8 a cluster size is non-portable), else
+// G <= 8. G = 1 is an ordinary block with a block barrier. One cluster
+// barrier a step (`sweep_barrier`) orders each step's shared-memory
+// writes before the next step's reads, the neighbour blocks' reads over
+// distributed shared memory included, and those reads before the next
+// step's writes; its release fence is restricted to the block's shared
+// memory, the only memory a step writes that another block reads, so a
+// block only reads a neighbour's memory and never stores into it.
 //
-// * The sweep (no planes): `dense_sweep_cluster_kernel`, one
-//   thread-block cluster of G blocks a pair, block r owning the
-//   window's lanes [r Lb, min((r+1) Lb, W)), Lb even, at least 1024
-//   lanes a block; G <= 16 where the card holds every pair's cluster at
-//   once (above 8 a cluster size is non-portable), else G <= 8. A block keeps its
-//   lanes' five bands parity-packed in shared memory, [band][even lanes
-//   | odd lanes], updated in place: step d moves only the lanes of d's
-//   parity, which read the other parity's S, I1, I2 at k - 1 and S, D1,
-//   D2 at k + 1 (written at d - 1) and their own S (from d - 2). Writing
-//   no plane, it computes no lane of the wrong parity and copies
-//   nothing. A block's edge lanes read the neighbour block's edge lane
-//   over distributed shared memory. One cluster barrier a step orders
-//   this step's writes before the next step's reads and its reads
-//   before the next step's writes; its release fence is restricted to
-//   the block's own shared memory, the only memory a step writes. The
-//   bases are two tables of the clamped bytes the plain version reads,
-//   indexed by v and by h, staged in shared memory for each stretch of
-//   SW_STRETCH steps. G = 1 is an ordinary block with a block barrier.
-// * The replay (planes): `dense_span_kernel`, one block a pair; lanes
-//   strided over up to 1024 threads; the five int32 bands and the
-//   run-length band double-buffered (one barrier per step) in shared
-//   memory up to SPAN_SMEM_MAX bytes and in a per-pair global scratch
-//   above. Bases are read as q[v-1] and t[h-1] at the clamped indices
-//   the XLA span's shift registers hold, so every plane byte --
-//   reachable or not -- equals the plain version's.
+// * The sweep (no planes): `dense_sweep_cluster_kernel`, at least 1024
+//   lanes a block. A block keeps its lanes' five bands parity-packed in
+//   shared memory, [band][even lanes | odd lanes], updated in place:
+//   step d moves only the lanes of d's parity, which read the other
+//   parity's S, I1, I2 at k - 1 and S, D1, D2 at k + 1 (written at
+//   d - 1) and their own S (from d - 2). Writing no plane, it computes
+//   no lane of the wrong parity and copies nothing. A block's edge lanes
+//   read the neighbour block's edge lane over distributed shared memory.
+// * The replay (planes): `dense_replay_cluster_kernel`, warps of 32
+//   threads each holding LPT adjacent lanes of S, I1, D1, I2, D2 and the
+//   run band in registers, at most RP_WARPS warps a block (one a warp
+//   scheduler) before a band spreads over more blocks. Every lane writes
+//   a plane entry every step, the idle parity's too, from the values its
+//   neighbours held before this step: new values go to temporaries and
+//   are committed after the entries. Neighbours come by warp shuffles;
+//   at warp edges from a double-buffered halo in shared memory (a warp's
+//   last lane's S, I1, I2 and its first lane's S, D1, D2 after each
+//   step), at block edges from the neighbour block's halo over
+//   distributed shared memory. A lane's k parity is its register's (k0
+//   even offsets aside, the block's first k is the same parity for every
+//   thread), so which registers may move is compile-time in each of two
+//   step bodies, one per parity. Entries go out LPT at a time (8- or
+//   16-byte stores) where W keeps them aligned.
 //
-// Both take the state from a checkpoint slice, optionally at a per-pair
-// column offset c_lo into a wider band (the narrow replay: origin
-// k0 + c_lo, INF inflow at the window's edges), and write the state out
-// straight to its slot (the next checkpoint, in the sweep). Offsets into
-// states and planes are 64-bit.
+// Both read the bases as two tables of the clamped bytes the plain
+// version reads (the XLA span's shift registers: q[v-1] through the
+// reversed query, t[h-1]), indexed by v and by h, staged in shared memory
+// for each stretch of SW_STRETCH steps, so every plane byte -- reachable
+// or not -- equals the plain version's. Both take the state from a
+// checkpoint slice, optionally at a per-pair column offset c_lo into a
+// wider band (the narrow replay: origin k0 + c_lo, INF inflow at the
+// window's edges), and write the state out straight to its slot (the
+// next checkpoint, in the sweep). Offsets into states and planes are
+// 64-bit.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -61,12 +75,14 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int SPAN_SMEM_MAX = 200 * 1024;  // replay: bands in shared memory
+constexpr unsigned FULL = 0xffffffffu;
 constexpr int SMEM_LIMIT = 227 * 1024;
 constexpr int SW_PORTABLE_G = 8;  // the portable cluster size
 constexpr int SW_MAX_G = 16;      // the largest (non-portable) cluster
-constexpr int SW_MIN_LB = 1024;   // lanes a block before a band spreads
+constexpr int SW_MIN_LB = 1024;   // sweep: lanes a block before a band spreads
 constexpr int SW_STRETCH = 4096;  // steps one staging of the base tables covers
+constexpr int RP_WARPS = 4;       // replay: warps a block before a band spreads
+constexpr int RP_MAX_WARPS = 12;  // replay: the most warps a block (168 registers)
 
 struct Pen {
   int x, o1e1, e1, o2e2, e2;
@@ -76,7 +92,12 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-// The sweep's step barrier across a cluster: each thread's release fence
+// floor(a / 2) of a compile-time constant
+__host__ __device__ constexpr int fl2(int a) {
+  return a >= 0 ? a / 2 : -((1 - a) / 2);
+}
+
+// The step barrier across a cluster: each thread's release fence
 // restricted to its own block's shared memory (MEMBAR.ALL.CTA, not the
 // GPU-wide MEMBAR that cluster.sync()'s release arrive issues), a relaxed
 // arrive and an acquiring wait. It orders every shared-memory write and
@@ -89,9 +110,6 @@ __device__ __forceinline__ void sweep_barrier() {
       "barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
-// ---------------------------------------------------------------------
-// the sweep: a cluster a pair, parity-packed bands in shared memory
-
 // bytes of each base table: every v (and h) a block of Lb lanes reads
 // over SW_STRETCH steps
 __host__ __device__ constexpr int sweep_table_bytes(int Lb) {
@@ -101,6 +119,30 @@ __host__ __device__ constexpr int sweep_table_bytes(int Lb) {
 __host__ __device__ constexpr int sweep_smem_bytes(int Lb) {
   return 20 * Lb + 2 * sweep_table_bytes(Lb);
 }
+
+// the replay block's halo ([2 buffers][warps][6] int32) and base tables
+__host__ __device__ constexpr int replay_smem_bytes(int Lb, int lpt) {
+  return 48 * (Lb / (32 * lpt)) + 2 * sweep_table_bytes(Lb);
+}
+
+// the tables qt[i] and tt[i]: the bytes the plain version reads at
+// v = vmin + i and h = hmin + i, for every lane of a block of Lb lanes
+// whose first lane has k = kb and every step of the stretch from d_a
+__device__ __forceinline__ void stage_tables(uint8_t* qt, uint8_t* tt, int tbl,
+                                             const uint8_t* q, const uint8_t* t,
+                                             int qlen, int l_pad, int kb, int Lb,
+                                             int d_a, int& vmin, int& hmin) {
+  vmin = (d_a - kb - (Lb - 1)) >> 1;
+  hmin = (d_a + kb) >> 1;
+  for (int i = threadIdx.x; i < tbl; i += blockDim.x) {
+    const int qi = clampi(qlen - (vmin + i), 0, l_pad - 1);
+    qt[i] = q[clampi(qlen - 1 - qi, 0, l_pad - 1)];
+    tt[i] = t[clampi(hmin + i - 1, 0, l_pad - 1)];
+  }
+}
+
+// ---------------------------------------------------------------------
+// the sweep: parity-packed bands in shared memory
 
 template <bool TWO_PIECE>
 __global__ void __launch_bounds__(1024, 1) dense_sweep_cluster_kernel(
@@ -148,20 +190,8 @@ __global__ void __launch_bounds__(1024, 1) dense_sweep_cluster_kernel(
   const int* left = r > 0 ? cluster.map_shared_rank(bands, r - 1) + (Lh - 1) : nullptr;
   const int* right = r < G - 1 ? cluster.map_shared_rank(bands, r + 1) : nullptr;
 
-  // the base tables: qt[i] and tt[i] hold the bytes the plain version
-  // reads at v = vmin + i and h = hmin + i, for every lane of the block
-  // and every step of the stretch from d_a
   int vmin = 0, hmin = 0;
-  auto stage = [&](int d_a) {
-    vmin = (d_a - kb - (Lb - 1)) >> 1;
-    hmin = (d_a + kb) >> 1;
-    for (int i = tid; i < tbl; i += nt) {
-      const int qi = clampi(qlen - (vmin + i), 0, l_pad - 1);
-      qt[i] = q[clampi(qlen - 1 - qi, 0, l_pad - 1)];
-      tt[i] = t[clampi(hmin + i - 1, 0, l_pad - 1)];
-    }
-  };
-  stage(d_lo + 1);
+  stage_tables(qt, tt, tbl, q, t, qlen, l_pad, kb, Lb, d_lo + 1, vmin, hmin);
   // every block of the cluster has started and loaded its lanes and
   // tables before any neighbour reads them
   if (G > 1) cluster.sync(); else __syncthreads();
@@ -169,7 +199,8 @@ __global__ void __launch_bounds__(1024, 1) dense_sweep_cluster_kernel(
   for (int s = 0; s < n_steps; ++s) {
     const int d = d_lo + 1 + s;
     if (s > 0 && s % SW_STRETCH == 0) {
-      stage(d);  // the last step's barrier: no thread reads the old tables
+      // the last step's barrier: no thread reads the old tables
+      stage_tables(qt, tt, tbl, q, t, qlen, l_pad, kb, Lb, d, vmin, hmin);
       __syncthreads();
     }
     // lanes of d's parity move: j = 2 i + p, from the other half's
@@ -271,171 +302,308 @@ __global__ void __launch_bounds__(1024, 1) sweep_barrier_kernel(int G, int n_ste
 }
 
 // ---------------------------------------------------------------------
-// the replay: one block a pair, bands double-buffered, planes
+// the replay: band lanes in registers, every plane entry
 
-template <bool TWO_PIECE, bool PLANES>
-__global__ void dense_span_kernel(
+// a thread's LPT plane entries, as words w[i / 2] (entry i in the low
+// half when i is even), at pd: LPT at a time (8 or 16 bytes) where W
+// keeps them aligned, else 32-bit words (W even) or 16-bit entries;
+// entries i < nin only
+template <int LPT>
+__device__ __forceinline__ void store_entries(uint16_t* pd, const uint32_t (&w)[LPT / 2],
+                                              int nin, int W) {
+  if (W % LPT == 0) {
+    if (nin >= LPT) {
+      if constexpr (LPT == 8)
+        *reinterpret_cast<uint4*>(pd) = make_uint4(w[0], w[1], w[2], w[3]);
+      else
+        *reinterpret_cast<uint2*>(pd) = make_uint2(w[0], w[1]);
+    }
+  } else if ((W & 1) == 0) {
+#pragma unroll
+    for (int j = 0; j < LPT; j += 2)
+      if (j + 2 <= nin) *reinterpret_cast<uint32_t*>(pd + j) = w[j / 2];
+  } else {
+#pragma unroll
+    for (int i = 0; i < LPT; ++i)
+      if (i < nin) pd[i] = (uint16_t)(w[i / 2] >> (16 * (i & 1)));
+  }
+}
+
+// One step of a thread's LPT register lanes, k = kt + i, at anti-
+// diagonal d with x = d - kt and y = d + kt, whose parity is M: the
+// registers i of parity M move. sl .. d2r: the neighbours at k - 1 of
+// register 0 and at k + 1 of register LPT - 1, as they were after the
+// step before. qp / tp: the base tables at v = x >> 1 and h = y >> 1.
+// Every register's plane entry goes to pd; registers i >= nin lie past
+// the window, stay INF and store nothing.
+template <int M, int LPT, bool TWO>
+__device__ __forceinline__ void replay_step(
+    int (&S)[LPT], int (&I1)[LPT], int (&D1)[LPT], int (&I2)[TWO ? LPT : 1],
+    int (&D2)[TWO ? LPT : 1], int (&R)[LPT], int x, int y, int q2, int t2, int nin,
+    const uint8_t* qp, const uint8_t* tp, int sl, int i1l, int i2l, int sr, int d1r,
+    int d2r, const Pen& pen, uint16_t* pd, int W) {
+  // register i moves iff its parity is M and lo <= i <= hi: |k| <= d <=
+  // min(k + 2 qlen, 2 tlen - k), inside the window
+  const int lo = max(-y, x - q2);
+  const int hi = min(min(x, t2 - y), nin - 1);
+  // the diagonal term exists iff v > 0 and h > 0: |k| + 2 <= d
+  const int dlo = 2 - y, dhi = x - 2;
+  int nS[LPT], nI1[LPT], nD1[LPT], nI2[TWO ? LPT : 1], nD2[TWO ? LPT : 1], nR[LPT];
+  uint32_t w[LPT / 2];
+#pragma unroll
+  for (int i = 0; i < LPT; ++i) {
+    const int s_km1 = i > 0 ? S[i - 1] : sl;
+    const int s_kp1 = i < LPT - 1 ? S[i + 1] : sr;
+    const int i1e = (i > 0 ? I1[i - 1] : i1l) + pen.e1;
+    const int i1o = s_km1 + pen.o1e1;
+    const int i1n = min(i1o, i1e);
+    const int d1e = (i < LPT - 1 ? D1[i + 1] : d1r) + pen.e1;
+    const int d1o = s_kp1 + pen.o1e1;
+    const int d1n = min(d1o, d1e);
+    int i2n = AW_INF, d2n = AW_INF, i2x = 0, d2x = 0;
+    if (TWO) {
+      const int i2e = (i > 0 ? I2[i - 1] : i2l) + pen.e2;
+      const int i2o = s_km1 + pen.o2e2;
+      i2n = min(i2o, i2e);
+      i2x = i2e <= i2o;  // a tie extends
+      const int d2e = (i < LPT - 1 ? D2[i + 1] : d2r) + pen.e2;
+      const int d2o = s_kp1 + pen.o2e2;
+      d2n = min(d2o, d2e);
+      d2x = d2e <= d2o;
+    }
+    // the best gap and its code, a tie to the earlier of I1 < I2 < D1 <
+    // D2 (the plain version's last write wins in D2, D1, I2, I1 order)
+    int best, code;
+    if (TWO) {
+      const int bi = min(i1n, i2n), bd = min(d1n, d2n);
+      best = min(bi, bd);
+      code = bi <= bd ? (i1n <= i2n ? 2 : 3) : (d1n <= d2n ? 4 : 5);
+    } else {
+      best = min(i1n, d1n);
+      code = i1n <= d1n ? 2 : 4;
+    }
+    // v = (x - i) >> 1 and h = (y + i) >> 1, x and y of parity M
+    const bool match = qp[fl2(M - i)] == tp[fl2(M + i)];
+    const bool diag_ok = i >= dlo && i <= dhi;
+    const int diag = diag_ok ? S[i] + (match ? 0 : pen.x) : AW_INF;
+    const int sn = min(diag, best);
+    // diag-mismatch over any gap, a gap over a diagonal match
+    const int choice = diag <= best && diag_ok && !match ? 1 : (best == sn ? code : 0);
+    const int packed = choice | ((i1e <= i1o) << 3) | ((d1e <= d1o) << 4) | (i2x << 5) |
+                       (d2x << 6);
+    const int newrun = choice == 0 ? min(R[i], 254) + 1 : 0;
+    const uint32_t entry = (uint32_t)(packed | (newrun << 8));
+    if (i & 1)
+      w[i / 2] |= entry << 16;
+    else
+      w[i / 2] = entry;
+
+    const bool active = (i & 1) == M && i >= lo && i <= hi;
+    nS[i] = active ? min(sn, AW_INF) : S[i];
+    nI1[i] = active ? min(i1n, AW_INF) : I1[i];
+    nD1[i] = active ? min(d1n, AW_INF) : D1[i];
+    if (TWO) {
+      nI2[i] = active ? min(i2n, AW_INF) : I2[i];
+      nD2[i] = active ? min(d2n, AW_INF) : D2[i];
+    }
+    nR[i] = active ? newrun : R[i];
+  }
+  store_entries<LPT>(pd, w, nin, W);
+#pragma unroll
+  for (int i = 0; i < LPT; ++i) {
+    S[i] = nS[i];
+    I1[i] = nI1[i];
+    D1[i] = nD1[i];
+    if (TWO) {
+      I2[i] = nI2[i];
+      D2[i] = nD2[i];
+    }
+    R[i] = nR[i];
+  }
+}
+
+// Block r of pair blockIdx.x / G runs the window's lanes [r Lb, (r+1) Lb)
+// with Lb = blockDim.x * LPT: thread j's registers are lanes j LPT ..
+template <int LPT, bool TWO>
+__global__ void __launch_bounds__(32 * RP_MAX_WARPS, 1) dense_replay_cluster_kernel(
     const uint8_t* __restrict__ qs, const uint8_t* __restrict__ ts,
     const int* __restrict__ qlens, const int* __restrict__ tlens,
     const int* __restrict__ c_lo, int B, int l_pad, int K, int W, int d_lo,
-    int n_steps, Pen pen, const int* __restrict__ state_in,
+    int n_steps, int G, Pen pen, const int* __restrict__ state_in,
     long long in_band_stride, int* __restrict__ state_out,
-    long long out_band_stride, uint16_t* __restrict__ planes, int* iscratch,
-    uint8_t* rscratch) {
-  extern __shared__ int smem[];
-  const int b = blockIdx.x;
-  const int qlen = qlens[b];
-  const int tlen = tlens[b];
+    long long out_band_stride, uint16_t* __restrict__ planes) {
+  static_assert(LPT % 2 == 0, "a lane's parity of k is its register's");
+  // [2 buffers][nw][6]: a warp's last lane (S, I1, I2), first (S, D1, D2)
+  extern __shared__ __align__(16) int halo[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int r = G > 1 ? (int)cluster.block_rank() : 0;
+  const int b = blockIdx.x / G;
+  const int tid = threadIdx.x, lane = tid & 31, wp = tid >> 5, nw = blockDim.x >> 5;
+  const int Lb = blockDim.x * LPT;
+  const int qlen = qlens[b], tlen = tlens[b];
   const uint8_t* q = qs + (size_t)b * l_pad;
   const uint8_t* t = ts + (size_t)b * l_pad;
 
   // band geometry of the full band K (dense.py _band_geometry), then the
-  // window [col0, col0 + W) of it
+  // window [col0, col0 + W) of it, then this block's and thread's lanes
   const int k_end = tlen - qlen;
   const int abs_kend = k_end < 0 ? -k_end : k_end;
   int k0 = min(0, k_end) - ((K - 1 - abs_kend) >> 1);
   k0 -= (k0 & 1);
   const int col0 = c_lo == nullptr ? 0 : clampi(c_lo[b], 0, K - W);
-  k0 += col0;
+  const int kb = k0 + col0 + r * Lb;  // the block's first lane's k
+  const int c0 = r * Lb + tid * LPT;  // the window column of register 0
+  const int kt = kb + tid * LPT;      // its k: of kb's parity
+  const int nin = W - c0;             // register i is in the window iff i < nin
 
-  // bands: [buf][band][W] int32 (S, I1, D1, I2, D2) + [buf][W] run length
-  int* ib;
-  uint8_t* rb;
-  if (iscratch != nullptr) {
-    ib = iscratch + (size_t)b * 10 * W;
-    rb = rscratch + (size_t)b * 2 * W;
-  } else {
-    ib = smem;
-    rb = reinterpret_cast<uint8_t*>(smem + 10 * W);
-  }
-#define BAND(buf, band) (ib + ((buf) * 5 + (band)) * W)
+  uint8_t* qt = reinterpret_cast<uint8_t*>(halo + 12 * nw);
+  const int tbl = sweep_table_bytes(Lb);
+  uint8_t* tt = qt + tbl;
 
-  for (int c = threadIdx.x; c < W; c += blockDim.x) {
-    const size_t src = (size_t)b * K + col0 + c;
-    for (int band = 0; band < 5; ++band)
-      BAND(0, band)[c] = state_in[band * in_band_stride + src];
-    if (PLANES) rb[c] = 0;
-  }
-  __syncthreads();
-
-  const size_t plane_stride = (size_t)B * W;
-  uint16_t* prow = PLANES ? planes + (size_t)b * W : nullptr;
-  for (int i = 0; i < n_steps; ++i) {
-    const int d = d_lo + 1 + i;
-    const int pb = i & 1;
-    const int nb = pb ^ 1;
-    const int* S = BAND(pb, 0);
-    const int* I1 = BAND(pb, 1);
-    const int* D1 = BAND(pb, 2);
-    const int* I2 = BAND(pb, 3);
-    const int* Dd2 = BAND(pb, 4);
-    const uint8_t* R = rb + pb * W;
-    int* So = BAND(nb, 0);
-    int* I1o = BAND(nb, 1);
-    int* D1o = BAND(nb, 2);
-    int* I2o = BAND(nb, 3);
-    int* D2o = BAND(nb, 4);
-    uint8_t* Ro = rb + nb * W;
-
-    for (int c = threadIdx.x; c < W; c += blockDim.x) {
-      const int k = k0 + c;
-      const int v = (d - k) >> 1;
-      const int h = (d + k) >> 1;
-      const bool active = ((d - k) & 1) == 0 && v >= 0 && v <= qlen &&
-                          h >= 0 && h <= tlen;
-
-      const int s_prev = S[c];
-      const int s_km1 = c > 0 ? S[c - 1] : AW_INF;
-      const int s_kp1 = c < W - 1 ? S[c + 1] : AW_INF;
-
-      const int i1_ext_v = (c > 0 ? I1[c - 1] : AW_INF) + pen.e1;
-      const int i1_opn_v = s_km1 + pen.o1e1;
-      const int i1_new = min(i1_opn_v, i1_ext_v);
-      const int d1_ext_v = (c < W - 1 ? D1[c + 1] : AW_INF) + pen.e1;
-      const int d1_opn_v = s_kp1 + pen.o1e1;
-      const int d1_new = min(d1_opn_v, d1_ext_v);
-      int best_gap = min(i1_new, d1_new);
-
-      int i2_new = I2[c], d2_new = Dd2[c], i2_ext = 0, d2_ext = 0;
-      if (TWO_PIECE) {
-        const int i2_ext_v = (c > 0 ? I2[c - 1] : AW_INF) + pen.e2;
-        const int i2_opn_v = s_km1 + pen.o2e2;
-        i2_new = min(i2_opn_v, i2_ext_v);
-        i2_ext = i2_ext_v <= i2_opn_v;
-        const int d2_ext_v = (c < W - 1 ? Dd2[c + 1] : AW_INF) + pen.e2;
-        const int d2_opn_v = s_kp1 + pen.o2e2;
-        d2_new = min(d2_opn_v, d2_ext_v);
-        d2_ext = d2_ext_v <= d2_opn_v;
-        best_gap = min(best_gap, min(i2_new, d2_new));
-      }
-
-      // bases at the clamped indices the XLA shift registers hold:
-      // q[v-1] via rq[qlen - v], t[h-1]
-      const int qi = clampi(qlen - v, 0, l_pad - 1);
-      const uint8_t qb = q[clampi(qlen - 1 - qi, 0, l_pad - 1)];
-      const uint8_t tb = t[clampi(h - 1, 0, l_pad - 1)];
-      const bool is_match = qb == tb;
-      const bool diag_ok = v > 0 && h > 0;
-      const int diag = diag_ok ? s_prev + (is_match ? 0 : pen.x) : AW_INF;
-      const int s_new = min(diag, best_gap);
-
-      int run_out = 0;
-      if (PLANES) {
-        // last write wins: D2 < D1 < I2 < I1 < diag-mismatch
-        int choice = 0;
-        if (TWO_PIECE && d2_new == s_new) choice = 5;
-        if (d1_new == s_new) choice = 4;
-        if (TWO_PIECE && i2_new == s_new) choice = 3;
-        if (i1_new == s_new) choice = 2;
-        if (diag_ok && diag == s_new && !is_match) choice = 1;
-        const int packed = choice | ((i1_ext_v <= i1_opn_v) << 3) |
-                           ((d1_ext_v <= d1_opn_v) << 4) | (i2_ext << 5) |
-                           (d2_ext << 6);
-        const int run_prev = R[c];
-        const int new_run = choice == 0 ? min(run_prev, 254) + 1 : 0;
-        prow[(size_t)i * plane_stride + c] = (uint16_t)(packed | (new_run << 8));
-        run_out = active ? new_run : run_prev;
-      }
-
-      if (active) {
-        So[c] = min(s_new, AW_INF);
-        I1o[c] = min(i1_new, AW_INF);
-        D1o[c] = min(d1_new, AW_INF);
-        I2o[c] = min(i2_new, AW_INF);
-        D2o[c] = min(d2_new, AW_INF);
-      } else {
-        So[c] = s_prev;
-        I1o[c] = I1[c];
-        D1o[c] = D1[c];
-        I2o[c] = I2[c];
-        D2o[c] = Dd2[c];
-      }
-      if (PLANES) Ro[c] = (uint8_t)run_out;
+  int S[LPT], I1[LPT], D1[LPT], I2[TWO ? LPT : 1], D2[TWO ? LPT : 1], R[LPT];
+  const long long src = (long long)b * K + col0 + c0;
+#pragma unroll
+  for (int i = 0; i < LPT; ++i) {
+    const bool in = i < nin;
+    S[i] = in ? state_in[src + i] : AW_INF;
+    I1[i] = in ? state_in[in_band_stride + src + i] : AW_INF;
+    D1[i] = in ? state_in[2 * in_band_stride + src + i] : AW_INF;
+    if (TWO) {
+      I2[i] = in ? state_in[3 * in_band_stride + src + i] : AW_INF;
+      D2[i] = in ? state_in[4 * in_band_stride + src + i] : AW_INF;
     }
-    __syncthreads();
+    R[i] = 0;  // the run band restarts with each span
+  }
+  // the halo after step s is in buffer (s + 1) & 1; this is "step -1"'s
+  {
+    int* ho = halo + wp * 6;
+    if (lane == 31) {
+      ho[0] = S[LPT - 1];
+      ho[1] = I1[LPT - 1];
+      ho[2] = TWO ? I2[LPT - 1] : AW_INF;
+    }
+    if (lane == 0) {
+      ho[3] = S[0];
+      ho[4] = D1[0];
+      ho[5] = TWO ? D2[0] : AW_INF;
+    }
+  }
+  // the neighbour blocks' halos, read over distributed shared memory:
+  // the left block's last warp's entry and the right block's first's
+  const int* left = r > 0 ? cluster.map_shared_rank(halo, r - 1) + (nw - 1) * 6 : nullptr;
+  const int* right = r < G - 1 ? cluster.map_shared_rank(halo, r + 1) : nullptr;
+
+  int vmin = 0, hmin = 0;
+  stage_tables(qt, tt, tbl, q, t, qlen, l_pad, kb, Lb, d_lo + 1, vmin, hmin);
+  // every block of the cluster has started and written its halo before
+  // any neighbour reads it
+  if (G > 1) cluster.sync(); else __syncthreads();
+
+  const int q2 = 2 * qlen, t2 = 2 * tlen;
+  const long long pstride = (long long)B * W;
+  uint16_t* pd = planes + (long long)b * W + c0;  // the row of step s
+  const int m0 = (d_lo + 1 - kb) & 1;  // the parity of the first step's moving registers
+  for (int s = 0; s < n_steps; ++s) {
+    const int d = d_lo + 1 + s;
+    if (s > 0 && s % SW_STRETCH == 0) {
+      // the last step's barrier: no thread reads the old tables
+      stage_tables(qt, tt, tbl, q, t, qlen, l_pad, kb, Lb, d, vmin, hmin);
+      __syncthreads();
+    }
+    // neighbours at k - 1 (S, I1, I2) and k + 1 (S, D1, D2): by shuffle
+    // inside a warp, from the halo (written by the step before) at a
+    // warp's ends, INF past the window's ends
+    const int cur = (s & 1) * nw * 6;
+    int sl = __shfl_up_sync(FULL, S[LPT - 1], 1);
+    int i1l = __shfl_up_sync(FULL, I1[LPT - 1], 1);
+    int sr = __shfl_down_sync(FULL, S[0], 1);
+    int d1r = __shfl_down_sync(FULL, D1[0], 1);
+    int i2l = AW_INF, d2r = AW_INF;
+    if (TWO) {
+      i2l = __shfl_up_sync(FULL, I2[LPT - 1], 1);
+      d2r = __shfl_down_sync(FULL, D2[0], 1);
+    }
+    if (lane == 0) {
+      if (wp > 0) {
+        const int* h = halo + cur + (wp - 1) * 6;
+        sl = h[0];
+        i1l = h[1];
+        i2l = h[2];
+      } else if (left != nullptr) {
+        sl = left[cur];
+        i1l = left[cur + 1];
+        i2l = left[cur + 2];
+      } else {
+        sl = i1l = i2l = AW_INF;
+      }
+    }
+    if (lane == 31) {
+      if (wp < nw - 1) {
+        const int* h = halo + cur + (wp + 1) * 6;
+        sr = h[3];
+        d1r = h[4];
+        d2r = h[5];
+      } else if (right != nullptr) {
+        sr = right[cur + 3];
+        d1r = right[cur + 4];
+        d2r = right[cur + 5];
+      } else {
+        sr = d1r = d2r = AW_INF;
+      }
+    }
+    const int x = d - kt, y = d + kt;
+    const uint8_t* qp = qt + ((x >> 1) - vmin);
+    const uint8_t* tp = tt + ((y >> 1) - hmin);
+    if ((s + m0) & 1)
+      replay_step<1, LPT, TWO>(S, I1, D1, I2, D2, R, x, y, q2, t2, nin, qp, tp, sl, i1l,
+                               i2l, sr, d1r, d2r, pen, pd, W);
+    else
+      replay_step<0, LPT, TWO>(S, I1, D1, I2, D2, R, x, y, q2, t2, nin, qp, tp, sl, i1l,
+                               i2l, sr, d1r, d2r, pen, pd, W);
+    int* ho = halo + (cur ^ (nw * 6)) + wp * 6;  // the other buffer
+    if (lane == 31) {
+      ho[0] = S[LPT - 1];
+      ho[1] = I1[LPT - 1];
+      ho[2] = TWO ? I2[LPT - 1] : AW_INF;
+    }
+    if (lane == 0) {
+      ho[3] = S[0];
+      ho[4] = D1[0];
+      ho[5] = TWO ? D2[0] : AW_INF;
+    }
+    pd += pstride;
+    // the halo's writes before the next step's reads (the neighbours'
+    // included) and this step's reads before the step after's writes;
+    // after the last step, no block exits while a neighbour may still
+    // read it
+    if (G > 1) sweep_barrier(); else __syncthreads();
   }
 
-  const int fb = n_steps & 1;
-  for (int c = threadIdx.x; c < W; c += blockDim.x) {
-    const size_t dst = (size_t)b * W + c;
-    for (int band = 0; band < 5; ++band)
-      state_out[band * out_band_stride + dst] = BAND(fb, band)[c];
+  const long long dst = (long long)b * W + c0;
+#pragma unroll
+  for (int i = 0; i < LPT; ++i) {
+    if (i >= nin) continue;
+    state_out[dst + i] = S[i];
+    state_out[out_band_stride + dst + i] = I1[i];
+    state_out[2 * out_band_stride + dst + i] = D1[i];
+    // one-piece penalties leave I2 and D2 as they came
+    state_out[3 * out_band_stride + dst + i] = TWO ? I2[i] : state_in[3 * in_band_stride + src + i];
+    state_out[4 * out_band_stride + dst + i] = TWO ? D2[i] : state_in[4 * in_band_stride + src + i];
   }
-#undef BAND
 }
 
 // ---------------------------------------------------------------------
 // the dispatch
 
 struct Design {
-  int sweep;    // 1: the cluster sweep, 0: the replay kernel
-  int G;        // blocks a pair (the sweep's cluster)
-  int Lb;       // lanes a block (the sweep)
-  int scratch;  // bands in the global scratch (the replay)
+  int replay;  // 1: the replay (planes), 0: the sweep
+  int G;       // blocks a pair (the cluster)
+  int Lb;      // lanes a block
+  int lpt;     // the replay's band lanes a thread (0: the sweep)
 };
 
 int encode(const Design& g) {
-  return g.sweep | (g.G << 1) | (g.scratch << 6) | (g.Lb << 7);
+  return g.replay | (g.G << 1) | (g.lpt << 6) | (g.Lb << 10);
 }
 
 // threads a sweep block: its widest half in even turns of at most 1024
@@ -446,12 +614,18 @@ int sweep_threads(int Lb) {
   return (per + 31) / 32 * 32;
 }
 
-cudaLaunchConfig_t sweep_config(const Design& g, int B, cudaStream_t st,
-                                cudaLaunchAttribute* attr) {
+int threads_of(const Design& g) { return g.replay ? g.Lb / g.lpt : sweep_threads(g.Lb); }
+
+int smem_of(const Design& g) {
+  return g.replay ? replay_smem_bytes(g.Lb, g.lpt) : sweep_smem_bytes(g.Lb);
+}
+
+cudaLaunchConfig_t launch_config(const Design& g, int B, cudaStream_t st,
+                                 cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(B * g.G);
-  cfg.blockDim = dim3(sweep_threads(g.Lb));
-  cfg.dynamicSmemBytes = sweep_smem_bytes(g.Lb);
+  cfg.blockDim = dim3(threads_of(g));
+  cfg.dynamicSmemBytes = smem_of(g);
   cfg.stream = st;
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = g.G;
@@ -462,61 +636,86 @@ cudaLaunchConfig_t sweep_config(const Design& g, int B, cudaStream_t st,
   return cfg;
 }
 
-const void* sweep_kernel(int two_piece) {
-  return two_piece ? (const void*)dense_sweep_cluster_kernel<true>
-                   : (const void*)dense_sweep_cluster_kernel<false>;
+const void* kernel_of(const Design& g, int two_piece) {
+  if (!g.replay)
+    return two_piece ? (const void*)dense_sweep_cluster_kernel<true>
+                     : (const void*)dense_sweep_cluster_kernel<false>;
+  if (g.lpt == 8)
+    return two_piece ? (const void*)dense_replay_cluster_kernel<8, true>
+                     : (const void*)dense_replay_cluster_kernel<8, false>;
+  return two_piece ? (const void*)dense_replay_cluster_kernel<4, true>
+                   : (const void*)dense_replay_cluster_kernel<4, false>;
 }
 
-// what a kernel launched in the sweep's shape g needs set first
-cudaError_t sweep_attributes(const void* kern, const Design& g) {
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, sweep_smem_bytes(g.Lb));
+// what a kernel launched in the shape of g needs set first
+cudaError_t set_attributes(const void* kern, const Design& g) {
+  cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_of(g));
   if (e == cudaSuccess && g.G > SW_PORTABLE_G)
     e = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   return e;
 }
 
-// clusters of the sweep's shape g the card holds at once
+// clusters of design g the card holds at once
 // (cudaOccupancyMaxActiveClusters), or minus a CUDA error code
 int max_clusters(const Design& g, int two_piece) {
-  const void* kern = sweep_kernel(two_piece);
-  cudaError_t e = sweep_attributes(kern, g);
+  const void* kern = kernel_of(g, two_piece);
+  cudaError_t e = set_attributes(kern, g);
   if (e != cudaSuccess) return -(int)e;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = sweep_config(g, g.G, nullptr, &attr);
+  const cudaLaunchConfig_t cfg = launch_config(g, g.G, nullptr, &attr);
   int n = 0;
   e = cudaOccupancyMaxActiveClusters(&n, kern, &cfg);
   return e == cudaSuccess ? n : -(int)e;
 }
 
-// W lanes in at most maxg blocks of at least SW_MIN_LB lanes, Lb even
+// the sweep: W lanes in at most maxg blocks of at least SW_MIN_LB lanes,
+// Lb even
 Design sweep_design(int W, int maxg) {
   const int G = min(maxg, (W + SW_MIN_LB - 1) / SW_MIN_LB);
   const int per = (W + G - 1) / G;
   const int Lb = per + (per & 1);
-  return Design{1, (W + Lb - 1) / Lb, Lb, 0};
+  return Design{0, (W + Lb - 1) / Lb, Lb, 0};
 }
 
-// The replay runs one block a pair. The sweep spreads a band over up to
-// SW_MAX_G blocks where the card holds all B clusters at once, else over
-// up to SW_PORTABLE_G (more of them fit at once), whichever fits shared
-// memory. False for a window no design takes.
+// the replay: W lanes in warps of 32 threads of lpt lanes, RP_WARPS
+// warps a block (fewer for a narrow window) where maxg blocks take the
+// window, else as many more as it needs; 4 lanes a thread, 8 where 4
+// would need more than RP_MAX_WARPS warps a block. False if 8 would too.
+bool replay_design(int W, int maxg, Design* g) {
+  for (int lpt = 4; lpt <= 8; lpt += 4) {
+    const int warps = (W + 32 * lpt - 1) / (32 * lpt);
+    const int nw = max(min(RP_WARPS, warps), (warps + maxg - 1) / maxg);
+    if (nw > RP_MAX_WARPS) continue;
+    const int Lb = nw * 32 * lpt;
+    *g = Design{1, (W + Lb - 1) / Lb, Lb, lpt};
+    return true;
+  }
+  return false;
+}
+
+// Both designs spread a band over up to SW_MAX_G blocks where the card
+// holds all B clusters at once, else over up to SW_PORTABLE_G (more of
+// them fit at once), whichever fits. False for a window no design takes.
 bool choose(int K, int W, int with_planes, int B, int two_piece, Design* g) {
   *g = Design{0, 1, 0, 0};
   if (W < 1 || W > K) return false;
+  Design wide, portable;
+  bool wide_ok, portable_ok;
   if (with_planes) {
-    g->Lb = W;
-    g->scratch = 42 * W > SPAN_SMEM_MAX;
-    return true;
+    wide_ok = replay_design(W, SW_MAX_G, &wide);
+    portable_ok = replay_design(W, SW_PORTABLE_G, &portable);
+  } else {
+    wide = sweep_design(W, SW_MAX_G);
+    portable = sweep_design(W, SW_PORTABLE_G);
+    wide_ok = sweep_smem_bytes(wide.Lb) <= SMEM_LIMIT;
+    portable_ok = sweep_smem_bytes(portable.Lb) <= SMEM_LIMIT;
   }
-  const Design wide = sweep_design(W, SW_MAX_G);
-  const Design portable = sweep_design(W, SW_PORTABLE_G);
-  const bool wide_fits = sweep_smem_bytes(wide.Lb) <= SMEM_LIMIT;
-  if (wide.G > SW_PORTABLE_G && wide_fits && max_clusters(wide, two_piece) >= B)
+  if (wide_ok && wide.G > SW_PORTABLE_G && max_clusters(wide, two_piece) >= B)
     *g = wide;
-  else if (sweep_smem_bytes(portable.Lb) <= SMEM_LIMIT)
+  else if (portable_ok)
     *g = portable;
-  else if (wide_fits)
+  else if (wide_ok)
     *g = wide;
   else
     return false;
@@ -530,10 +729,10 @@ int launch_sweep(const Design& g, const void* qs, const void* ts,
                  const void* state_in, long long in_stride, void* state_out,
                  long long out_stride, cudaStream_t st) {
   auto* kern = dense_sweep_cluster_kernel<TWO_PIECE>;
-  cudaError_t e = sweep_attributes((const void*)kern, g);
+  cudaError_t e = set_attributes((const void*)kern, g);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = sweep_config(g, B, st, &attr);
+  const cudaLaunchConfig_t cfg = launch_config(g, B, st, &attr);
   e = cudaLaunchKernelEx(&cfg, kern, static_cast<const uint8_t*>(qs),
                          static_cast<const uint8_t*>(ts),
                          static_cast<const int*>(qlens),
@@ -546,25 +745,27 @@ int launch_sweep(const Design& g, const void* qs, const void* ts,
   return (int)cudaGetLastError();
 }
 
-template <bool TWO_PIECE>
+template <int LPT, bool TWO_PIECE>
 int launch_replay(const Design& g, const void* qs, const void* ts,
                   const void* qlens, const void* tlens, const void* c_lo,
                   int B, int l_pad, int K, int W, int d_lo, int n_steps,
                   Pen pen, const void* state_in, long long in_stride,
                   void* state_out, long long out_stride, void* planes,
-                  void* iscratch, void* rscratch, cudaStream_t st) {
-  const int threads = W >= 1024 ? 1024 : ((W + 31) / 32) * 32;
-  const int smem = g.scratch ? 0 : 42 * W;
-  cudaFuncSetAttribute(dense_span_kernel<TWO_PIECE, true>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  dense_span_kernel<TWO_PIECE, true><<<B, threads, smem, st>>>(
-      static_cast<const uint8_t*>(qs), static_cast<const uint8_t*>(ts),
-      static_cast<const int*>(qlens), static_cast<const int*>(tlens),
-      static_cast<const int*>(c_lo), B, l_pad, K, W, d_lo, n_steps, pen,
-      static_cast<const int*>(state_in), in_stride,
-      static_cast<int*>(state_out), out_stride,
-      static_cast<uint16_t*>(planes), static_cast<int*>(iscratch),
-      static_cast<uint8_t*>(rscratch));
+                  cudaStream_t st) {
+  auto* kern = dense_replay_cluster_kernel<LPT, TWO_PIECE>;
+  cudaError_t e = set_attributes((const void*)kern, g);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config(g, B, st, &attr);
+  e = cudaLaunchKernelEx(&cfg, kern, static_cast<const uint8_t*>(qs),
+                         static_cast<const uint8_t*>(ts),
+                         static_cast<const int*>(qlens),
+                         static_cast<const int*>(tlens),
+                         static_cast<const int*>(c_lo), B, l_pad, K, W, d_lo,
+                         n_steps, g.G, pen, static_cast<const int*>(state_in),
+                         in_stride, static_cast<int*>(state_out), out_stride,
+                         static_cast<uint16_t*>(planes));
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
@@ -573,11 +774,10 @@ int launch_replay(const Design& g, const void* qs, const void* ts,
 extern "C" {
 
 // The design a span over a window of W lanes of a band K runs for B
-// pairs, as a code: bit 0 the cluster sweep (with_planes 0) or the
-// replay kernel (with_planes 1), bits 1-5 the sweep's blocks a pair G,
-// bit 6 the replay's bands in the global scratch (the wrapper allocates
-// it), bits 7 and up the sweep's lanes a block Lb. -1 for a window no
-// design takes.
+// pairs, as a code: bit 0 the replay (with_planes 1) or the sweep, bits
+// 1-5 the blocks a pair G (the cluster), bits 6-9 the replay's band
+// lanes a thread (0 for the sweep), bits 10 and up the lanes a block
+// Lb. -1 for a window no design takes.
 int allwave_dense_span_design(int K, int W, int with_planes, int B,
                               int two_piece) {
   Design g;
@@ -585,12 +785,13 @@ int allwave_dense_span_design(int K, int W, int with_planes, int B,
   return encode(g);
 }
 
-// The most clusters of the sweep's design for B pairs at (K, W) the card
+// The most clusters of the span's design for B pairs at (K, W) the card
 // can hold at once (cudaOccupancyMaxActiveClusters), or minus a CUDA
 // error code.
-int allwave_dense_sweep_max_clusters(int K, int W, int B, int two_piece) {
+int allwave_dense_span_max_clusters(int K, int W, int with_planes, int B,
+                                    int two_piece) {
   Design g;
-  if (!choose(K, W, 0, B, two_piece, &g)) return -(int)cudaErrorInvalidValue;
+  if (!choose(K, W, with_planes, B, two_piece, &g)) return -(int)cudaErrorInvalidValue;
   return max_clusters(g, two_piece);
 }
 
@@ -603,11 +804,11 @@ int allwave_dense_sweep_barriers(int K, int W, int B, int n_steps,
   Design g;
   if (!choose(K, W, 0, B, 1, &g)) return (int)cudaErrorInvalidValue;
   if (B <= 0) return 0;
-  cudaError_t e = sweep_attributes((const void*)sweep_barrier_kernel, g);
+  cudaError_t e = set_attributes((const void*)sweep_barrier_kernel, g);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
-      sweep_config(g, B, static_cast<cudaStream_t>(stream), &attr);
+      launch_config(g, B, static_cast<cudaStream_t>(stream), &attr);
   e = cudaLaunchKernelEx(&cfg, sweep_barrier_kernel, g.G, n_steps, full_fence,
                          static_cast<int*>(out));
   if (e != cudaSuccess) return (int)e;
@@ -618,16 +819,14 @@ int allwave_dense_sweep_barriers(int K, int W, int B, int n_steps,
 // element offset i * (in|out)_band_stride; c_lo may be null (full band,
 // W == K); design: the code allwave_dense_span_design gives for (K, W,
 // with_planes, B, two_piece); planes (n_steps, B, W) uint16, written
-// when with_planes. iscratch (B, 10, W) int32 and rscratch (B, 2, W)
-// uint8 where the design's bit 6 is set, else null.
+// (and not null) when with_planes.
 int allwave_dense_span(const void* qs, const void* ts, const void* qlens,
                        const void* tlens, const void* c_lo, int B, int l_pad,
                        int K, int W, int d_lo, int n_steps, int x, int o1,
                        int e1, int o2, int e2, int two_piece,
                        int with_planes, int design, const void* state_in,
                        long long in_band_stride, void* state_out,
-                       long long out_band_stride, void* planes,
-                       void* iscratch, void* rscratch, void* stream) {
+                       long long out_band_stride, void* planes, void* stream) {
   Pen pen;
   pen.x = x;
   pen.e1 = e1;
@@ -637,11 +836,10 @@ int allwave_dense_span(const void* qs, const void* ts, const void* qlens,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Design g;
   if (!choose(K, W, with_planes, B, two_piece, &g) || encode(g) != design ||
-      (g.scratch != 0) != (iscratch != nullptr) ||
-      (iscratch != nullptr) != (rscratch != nullptr))
+      (planes != nullptr) != (with_planes != 0))
     return (int)cudaErrorInvalidValue;
   if (B <= 0) return 0;
-  if (g.sweep) {
+  if (!g.replay) {
     return two_piece
                ? launch_sweep<true>(g, qs, ts, qlens, tlens, c_lo, B, l_pad, K,
                                     W, d_lo, n_steps, pen, state_in,
@@ -651,15 +849,13 @@ int allwave_dense_span(const void* qs, const void* ts, const void* qlens,
                                      in_band_stride, state_out, out_band_stride,
                                      st);
   }
-  return two_piece
-             ? launch_replay<true>(g, qs, ts, qlens, tlens, c_lo, B, l_pad, K,
-                                   W, d_lo, n_steps, pen, state_in,
-                                   in_band_stride, state_out, out_band_stride,
-                                   planes, iscratch, rscratch, st)
-             : launch_replay<false>(g, qs, ts, qlens, tlens, c_lo, B, l_pad, K,
-                                    W, d_lo, n_steps, pen, state_in,
-                                    in_band_stride, state_out, out_band_stride,
-                                    planes, iscratch, rscratch, st);
+#define AW_REPLAY(LPT, TWO)                                                       \
+  launch_replay<LPT, TWO>(g, qs, ts, qlens, tlens, c_lo, B, l_pad, K, W, d_lo,    \
+                          n_steps, pen, state_in, in_band_stride, state_out,      \
+                          out_band_stride, planes, st)
+  if (g.lpt == 8) return two_piece ? AW_REPLAY(8, true) : AW_REPLAY(8, false);
+  return two_piece ? AW_REPLAY(4, true) : AW_REPLAY(4, false);
+#undef AW_REPLAY
 }
 
 }  // extern "C"

@@ -65,11 +65,11 @@ SIGNATURES = {
     "dense_span": {
         "allwave_dense_span": (
             [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-             _I, _I, _I, _P, _L, _P, _L, _P, _P, _P, _P],
+             _I, _I, _I, _P, _L, _P, _L, _P, _P],
             _I,
         ),
         "allwave_dense_span_design": ([_I] * 5, _I),
-        "allwave_dense_sweep_max_clusters": ([_I] * 4, _I),
+        "allwave_dense_span_max_clusters": ([_I] * 5, _I),
         "allwave_dense_sweep_barriers": ([_I, _I, _I, _I, _I, _P, _P], _I),
     },
     "segment_traceback": {

@@ -26,11 +26,13 @@ and a hand-written CUDA kernel (csrc/dense_span.cu,
 csrc/segment_traceback.cu). The wrappers `dense_span` and
 `segment_traceback` pick by the tensors' device, as wfa/dense.py does:
 CPU tensors take the plain version, CUDA tensors the kernel and nothing
-else. The span kernel has two designs, the sweep's (a thread-block
-cluster a pair) and the replay's (a block a pair); the C entry point
-`allwave_dense_span_design` says which one a span runs, and
-`span_design` reads it. Launches are counted in `span_launches` (with
-each shape's design) and `segment_traceback_launches`.
+else. The span kernel has two designs, the sweep's and the replay's,
+each a thread-block cluster a pair; the C entry point
+`allwave_dense_span_design` says which one a span runs and how it is
+spread, and `span_design` reads it. Launches are counted in
+`span_launches` (with each shape's design) and
+`segment_traceback_launches`; `seg_stats` counts the pairs the engine
+re-queued because their run buffer overflowed.
 """
 
 from __future__ import annotations
@@ -52,6 +54,20 @@ span_launches = LaunchCount()
 #: segment-traceback kernel launches, shapes (B, K, l_pad, n_steps,
 #: run_cap) with K the width of the plane walked (k_sub on a narrow replay)
 segment_traceback_launches = LaunchCount()
+
+
+@dataclass
+class SegStats:
+    """What the engine did since the last reset: the pairs it re-queued
+    at the full run cap because their run buffer overflowed."""
+
+    overflow_reruns: int = 0
+
+    def reset(self) -> None:
+        self.overflow_reruns = 0
+
+
+seg_stats = SegStats()
 
 _I32 = torch.int32
 _P_COLS = 128  # the narrow replay's sub-band offsets are multiples of this
@@ -119,19 +135,20 @@ def dense_span_ref(
 
 class SpanDesign(NamedTuple):
     """What csrc/dense_span.cu runs for a span over W lanes of a band K:
-    the fields of the code `allwave_dense_span_design` returns."""
+    the fields of the code `allwave_dense_span_design` returns. Both
+    designs are a thread-block cluster a pair."""
 
     code: int
-    cluster: bool  # the sweep's cluster kernel (no planes), else the replay's
-    blocks_per_pair: int  # G, the sweep's cluster (1 for the replay)
-    lanes_per_block: int  # Lb, the sweep's lanes a block
-    scratch: bool  # the replay's bands in a global scratch
+    replay: bool  # the replay kernel (planes), else the sweep's
+    blocks_per_pair: int  # G, the cluster
+    lanes_per_block: int  # Lb
+    lanes_per_thread: int  # the replay's band lanes in each thread's registers
 
 
 def span_design(K: int, W: int, with_planes: bool, B: int, two_piece: bool) -> SpanDesign:
     """The span kernel's design for B pairs on a window of W lanes of a
-    band K, from its C dispatch (the sweep's cluster size depends on how
-    many of B's clusters the card holds at once). Raises for a window no
+    band K, from its C dispatch (the cluster size depends on how many
+    of B's clusters the card holds at once). Raises for a window no
     design takes."""
     from . import cuda_build
 
@@ -140,16 +157,16 @@ def span_design(K: int, W: int, with_planes: bool, B: int, two_piece: bool) -> S
     )
     if code < 0:
         raise ValueError(f"no span design for K={K} k_sub={W} with_planes={with_planes}")
-    return SpanDesign(code, bool(code & 1), (code >> 1) & 31, code >> 7, bool(code >> 6 & 1))
+    return SpanDesign(code, bool(code & 1), (code >> 1) & 31, code >> 10, (code >> 6) & 15)
 
 
-def sweep_max_clusters(K: int, W: int, B: int, two_piece: bool) -> int:
-    """cudaOccupancyMaxActiveClusters of the sweep's design for B pairs
+def span_max_clusters(K: int, W: int, with_planes: bool, B: int, two_piece: bool) -> int:
+    """cudaOccupancyMaxActiveClusters of the span's design for B pairs
     at (K, W): how many of its clusters the card holds at once."""
     from . import cuda_build
 
-    n = cuda_build.library("dense_span").allwave_dense_sweep_max_clusters(
-        K, W, B, int(two_piece)
+    n = cuda_build.library("dense_span").allwave_dense_span_max_clusters(
+        K, W, int(with_planes), B, int(two_piece)
     )
     if n < 0:
         cuda_build.check(-n, "cudaOccupancyMaxActiveClusters")
@@ -181,8 +198,8 @@ def dense_span(
 ):
     """The span: the plain version for CPU tensors, the
     csrc/dense_span.cu kernel for CUDA tensors (same contract as
-    `dense_span_ref`): the cluster sweep without planes, the replay
-    kernel with them (`span_design`). `state` may be a view whose
+    `dense_span_ref`): the sweep's cluster kernel without planes, the
+    replay's with them (`span_design`). `state` may be a view whose
     (B, K) bands are each contiguous, such as one segment of the
     checkpoint tensor; `out`, if given, is such a (5, B, W) view and
     receives the state out. c_lo must lie in [0, K - k_sub]
@@ -223,12 +240,6 @@ def dense_span(
         else None
     )
     design = span_design(K, W, with_planes, B, pen.two_piece)
-    if design.scratch:
-        iscratch = torch.empty((B, 10, W), dtype=_I32, device=dev)
-        rscratch = torch.empty((B, 2, W), dtype=torch.uint8, device=dev)
-        iptr, rptr = iscratch.data_ptr(), rscratch.data_ptr()
-    else:
-        iptr = rptr = None
     lib = cuda_build.library("dense_span")
     rc = lib.allwave_dense_span(
         qs.data_ptr(), ts.data_ptr(), qlens.data_ptr(), tlens.data_ptr(),
@@ -236,7 +247,7 @@ def dense_span(
         B, l_pad, K, W, d_lo, n_steps, pen.x, pen.o1, pen.e1, pen.o2, pen.e2,
         int(pen.two_piece), int(with_planes), design.code,
         state.data_ptr(), state.stride(0), out.data_ptr(), out.stride(0),
-        None if planes is None else planes.data_ptr(), iptr, rptr,
+        None if planes is None else planes.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.check(rc, "dense_span kernel launch")
@@ -549,6 +560,43 @@ class SegmentedDenseAligner:
         # 2L/64 covers pure-match CIGARs 16x over
         return max(2048, (2 * l_pad) // 64)
 
+    def _runs_bound(self, score: int, qlen: int, tlen: int, n_seg: int) -> int:
+        """At least the number of runs the walk emits (the open run's
+        final flush included) for a pair certified at `score` whose walk
+        crosses n_seg segments.
+
+        The walk emits runs of one op, M, X, I or D, of at most 255
+        bases. Cut the alignment into blocks, maximal stretches of one op.
+
+        * Non-match blocks (X, I, D) come one base a step and merge while
+          the run stays <= 255; the open run rides across segment edges.
+          A block of L bases is ceil(L / 255) runs: its first costs at
+          least g = min(x, o1 + e1[, o2 + e2]) (a mismatch or a gap's
+          open), and each further one covers 255 more of its bases, each
+          costing at least u = min(x, e1[, e2]). So at most
+          score // g + score // (255 u) non-match runs.
+        * Match blocks number at most the non-match blocks + 1. The walk
+          reads a block in pieces of at most 255 bases (the run byte
+          saturates) that also break where a segment starts (the run band
+          restarts there); pieces merge while the run stays <= 255, so
+          a block of L bases is at most ceil(L / 255) runs plus one for
+          each segment edge inside it. With at most min(qlen, tlen) match
+          bases and n_seg - 1 edges: at most score // g + 1 +
+          min(qlen, tlen) // 255 + n_seg - 1 match runs.
+
+        Every op consumes a base, so qlen + tlen bounds the count too."""
+        pen = self.pen
+        g = min(pen.x, pen.o1 + pen.e1)
+        u = min(pen.x, pen.e1)
+        if pen.two_piece:
+            g = min(g, pen.o2 + pen.e2)
+            u = min(u, pen.e2)
+        every = qlen + tlen
+        if g <= 0 or u <= 0:
+            return every
+        bound = 2 * (score // g) + score // (255 * u) + min(qlen, tlen) // 255 + n_seg
+        return min(bound, every)
+
     def align_pairs(self, pairs: List[Tuple[bytes, bytes]], sigma_hint=None):
         """[(score, per-base cigar)] in input order (None = failed).
         sigma_hint: optional per-pair estimated scores (mash-derived);
@@ -656,11 +704,18 @@ class SegmentedDenseAligner:
         if not cert.any():
             return escalate
 
-        # walkers start at the end cell of each certified pair
+        # walkers start at the end cell of each certified pair; their run
+        # buffers hold every run the certified scores allow, so no pair
+        # is re-queued at full_cap to redo its sweep and replay
         k_end, k0, _ = band_geometry(qlens, tlens, K)
         d0 = qlens + tlens
         walk = new_walk(d0, (k_end - k0).clamp(0, K - 1), cert_d & (d0 > 0))
-        bufs = new_bufs(B, run_cap, dev)
+        bounds = [
+            self._runs_bound(int(scores[j]), int(ql_all[i]), int(tl_all[i]), -(-int(sums[j]) // C))
+            for j, i in enumerate(group) if cert[j]
+        ]
+        cap = min(max([run_cap] + bounds), full_cap)
+        bufs = new_bufs(B, cap, dev)
         # walkers only move to smaller d: segments above every start are
         # never visited, and the bound is known on the host, so the
         # replay loop needs no device->host sync
@@ -687,7 +742,7 @@ class SegmentedDenseAligner:
         # flush the open run of each finished walker
         for j in range(B):
             if walk_h[5, j] > 0 and not overflow[j]:
-                if nrun[j] < run_cap:
+                if nrun[j] < cap:
                     ops[j, nrun[j]] = walk_h[4, j]
                     lens[j, nrun[j]] = walk_h[5, j]
                     nrun[j] += 1
@@ -697,8 +752,10 @@ class SegmentedDenseAligner:
             if not cert[j]:
                 continue
             if overflow[j]:
-                # run buffer too small: retry at the full cap, fail there
-                if run_cap < full_cap:
+                # the run buffer or the walk's hop bound ran out: retry
+                # at the full cap, fail there
+                if cap < full_cap:
+                    seg_stats.overflow_reruns += 1
                     escalate.append((i, (k, full_cap)))
                 else:
                     results[i] = None

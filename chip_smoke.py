@@ -8,9 +8,9 @@ Run from the repository root on a machine with one NVIDIA Hopper GPU:
 It builds the nine CUDA kernel libraries from the sources in this
 checkout (one nvcc per source, all at once; phase 1 prints every dense
 forward and span kernel's registers and spill bytes from ptxas, fails
-if a register-band forward kernel spills, and prints the opcodes of the
-cluster sweep's loops), drives the port's three engines and runs the
-probes:
+if a register-band forward or replay kernel spills, and prints the
+opcodes of the cluster sweep's and the cluster replay's loops), drives
+the port's three engines and runs the probes:
 
 * the short-pair main path (phases 2-6): the dense forward and
   traceback kernels against their plain PyTorch versions (the forward
@@ -23,13 +23,15 @@ probes:
 * the segmented long-pair path (phases 7-11): the span and
   segment-traceback kernels of the segmented (checkpoint-replay) dense
   engine against their plain versions, on checkpoints the span kernel
-  swept, the sweep (the span without planes: a thread-block cluster a
-  pair) at every cluster size its design takes, odd windows and edge
-  pairs (phases 7-8); bench.py's config 5_100kb (4 x 100 kb at 2%, 12
-  directed pairs) through the CLI and the AllPairAligner, with a
-  profile, each span shape's design and the clusters the card holds at
-  once: the router sends all 12 pairs to the wavefront engine, whose
-  band ceiling hands every one back to the segmented engine (phase 9);
+  swept, the sweep (the span without planes) and the replay (with
+  planes), each a thread-block cluster a pair, at every cluster size
+  their designs take, odd windows and edge pairs (phases 7-8); bench.py's
+  config 5_100kb (4 x 100 kb at 2%, 12 directed pairs) through the CLI
+  and the AllPairAligner, with a profile, each span shape's design, the
+  clusters the card holds at once and the run buffers' sizes (no pair
+  re-queued at the full run cap): the router sends all 12 pairs to the
+  wavefront engine, whose band ceiling hands every one back to the
+  segmented engine (phase 9);
   4 x 24 kb through both the one-shot dense engine and the segmented
   engine, which must agree exactly (phase 10); and both kernels again
   at every shape phase 9 launched (phase 11);
@@ -83,6 +85,10 @@ SCORES = "0,5,8,2,24,1"
 #: exact scores, so any kernel that changes one is wrong
 SCORES_5_100KB = [11819, 11819, 11876, 11876, 11910, 11910, 23365, 23365, 23372, 23372,
                   23445, 23445]
+#: its replays: one for each of the 98 segments of its two certified
+#: groups of 6 pairs (each group replayed twice while a 4096-run buffer
+#: overflowed on every pair and the pair was swept and replayed again)
+REPLAYS_5_100KB = 196
 
 
 class PhaseFailed(Exception):
@@ -315,7 +321,8 @@ def span_case(device, B, L, l_pad, K, k_sub, C, seg, seed, div, reps, run_caps=(
         spans.append({
             "B": B, "l_pad": l_pad, "K": K, "k_sub": W, "d_lo": d_lo, "n_steps": C,
             "with_planes": with_planes, "G": design.blocks_per_pair,
-            "Lb": design.lanes_per_block, "max_abs_err": err, "tolerance": 0,
+            "Lb": design.lanes_per_block, "lpt": design.lanes_per_thread,
+            "max_abs_err": err, "tolerance": 0,
             "ms": ms, "plain_ms": plain_ms, "us_per_step": 1e3 * ms / C,
             "gcells_s": cells / (ms * 1e6),
             "plain_gcells_s": cells / (plain_ms * 1e6), "active_cells": active,
@@ -350,14 +357,16 @@ def span_case(device, B, L, l_pad, K, k_sub, C, seg, seed, div, reps, run_caps=(
     return spans, tbs
 
 
-def sweep_case(device, scores_str, B, K, k_sub, l_pad, C, seg, seed, edge, reps):
-    """The sweep (the span without planes, the cluster kernel) against
-    its plain version at one shape, tolerance 0: from a checkpoint the
-    kernel swept to segment `seg`, one span of C steps at the full band
-    (k_sub None) or on a window of k_sub lanes at per-pair offsets (odd
-    ones among them), on random pairs or on the edge pairs of
-    testing.batches.edge_batch (lengths 0 and 1, |k_end| = K - 1, an
-    infeasible pair). Returns a result dict with the design it ran."""
+def cluster_case(device, scores_str, B, K, k_sub, l_pad, C, seg, seed, edge, reps, planes):
+    """The sweep (planes False) or the replay (planes True), each a
+    thread-block cluster a pair, against its plain version at one shape,
+    tolerance 0: from a checkpoint the kernel swept to segment `seg`, one
+    span of C steps at the full band (k_sub None) or on a window of k_sub
+    lanes at per-pair offsets (odd ones among them), on random pairs or
+    on the edge pairs of testing.batches.edge_batch (lengths 0 and 1,
+    |k_end| = K - 1, an infeasible pair): the end state and, for the
+    replay, every plane entry. Returns a result dict with the design it
+    ran."""
     import numpy as np
     import torch
 
@@ -377,21 +386,28 @@ def sweep_case(device, scores_str, B, K, k_sub, l_pad, C, seg, seed, edge, reps)
     if k_sub is not None:
         c_lo = torch.tensor([(129 * i) % (K - W + 1) for i in range(B)], dtype=torch.int32,
                             device=device)
-    args = (qs, ts, ql, tl, pen, K, l_pad, seg * C, C, ckpts[:, seg], False)
+    args = (qs, ts, ql, tl, pen, K, l_pad, seg * C, C, ckpts[:, seg], planes)
     kw = dict(c_lo=c_lo, k_sub=k_sub)
-    st_k, _ = TS.dense_span(*args, **kw)
-    (st_p, _), plain_ms = timed_once(lambda: TS.dense_span_ref(*args, **kw))
-    at = f"{scores_str} B={B} K={K} k_sub={W} l_pad={l_pad} edge={edge}"
-    check(torch.equal(st_k, st_p), f"sweep states differ at {at}")
-    design = TS.span_design(K, W, False, B, pen.two_piece)
-    check(design.cluster, f"the sweep did not take the cluster design at {at}")
+    st_k, pl_k = TS.dense_span(*args, **kw)
+    (st_p, pl_p), plain_ms = timed_once(lambda: TS.dense_span_ref(*args, **kw))
+    mode = "replay" if planes else "sweep"
+    at = f"{mode} {scores_str} B={B} K={K} k_sub={W} l_pad={l_pad} edge={edge}"
+    check(torch.equal(st_k, st_p), f"states differ at {at}")
+    err = int((st_k - st_p).abs().max())
+    if planes:
+        check(torch.equal(pl_k, pl_p), f"planes differ at {at}")
+        err = max(err, int((pl_k.to(torch.int32) - pl_p.to(torch.int32)).abs().max()))
+    del st_p, pl_p, pl_k
+    design = TS.span_design(K, W, planes, B, pen.two_piece)
+    check(design.replay == planes, f"the span did not take its design at {at}")
     ms = time_ms(lambda: TS.dense_span(*args, **kw), reps)
     return {
-        "scores": scores_str, "B": B, "K": K, "k_sub": W, "l_pad": l_pad, "d_lo": seg * C,
-        "n_steps": C, "edge": edge, "G": design.blocks_per_pair, "Lb": design.lanes_per_block,
-        "max_clusters": TS.sweep_max_clusters(K, W, B, pen.two_piece),
-        "max_abs_err": int((st_k - st_p).abs().max()), "tolerance": 0, "ms": ms,
-        "plain_ms": plain_ms, "us_per_step": 1e3 * ms / C,
+        "mode": mode, "scores": scores_str, "B": B, "K": K, "k_sub": W, "l_pad": l_pad,
+        "d_lo": seg * C, "n_steps": C, "edge": edge, "G": design.blocks_per_pair,
+        "Lb": design.lanes_per_block, "lpt": design.lanes_per_thread,
+        "max_clusters": TS.span_max_clusters(K, W, planes, B, pen.two_piece),
+        "max_abs_err": err, "tolerance": 0, "ms": ms, "plain_ms": plain_ms,
+        "us_per_step": 1e3 * ms / C,
     }
 
 
@@ -708,19 +724,31 @@ def main() -> int:
     for fn, u in sorted(span_usage.items()):
         print("phase 1 ptxas: " + json.dumps({"kernel": _short(fn), **u}), flush=True)
     report["span_ptxas"] = {_short(fn): u for fn, u in span_usage.items()}
-    # the cluster sweep's loops (cuobjdump -sass): its bands and tables
-    # in shared memory move by LDS/STS; generic loads only fetch the
-    # neighbour blocks' edge lanes (three each side)
+    # the replay keeps its band lanes in registers: none may spill
+    replay_regs = {fn: u for fn, u in span_usage.items() if "dense_replay_cluster_kernel" in fn}
+    check(len(replay_regs) == 4 and all(u.get("spill_stores", 1) == 0 and u.get("spill_loads", 1) == 0
+                                        for u in replay_regs.values()),
+          f"a register-band replay kernel spills: {replay_regs}")
+    # the cluster sweep's and replay's loops (cuobjdump -sass): the
+    # sweep's bands and tables in shared memory move by LDS/STS, the
+    # replay's lanes by shuffles (SHFL), its halo and tables by LDS/STS;
+    # generic loads only fetch the neighbour blocks' edge lanes (three
+    # each side)
     from allwave_tpu_torch.probes import sass as SA
 
-    sweep_loops = [r for r in SA.report(["dense_span"]) if "dense_sweep_cluster_kernel" in r["function"]]
-    for r in sweep_loops:
-        print("phase 1 sweep loop: " + json.dumps(r), flush=True)
-    generic = max((sum(n for op, n in r["ops"].items() if op == "LD" or op.startswith("LD."))
-                   for r in sweep_loops), default=0)
-    check(any("LDS" in r["ops"] and "STS" in r["ops"] for r in sweep_loops) and generic <= 6,
-          f"the cluster sweep's loops do not keep their bands in shared memory "
-          f"({generic} generic loads in a loop)")
+    span_loops = SA.report(["dense_span"])
+    loops = {kind: [r for r in span_loops if name in r["function"]] for kind, name in
+             (("sweep", "dense_sweep_cluster_kernel"), ("replay", "dense_replay_cluster_kernel"))}
+    for kind, rows in loops.items():
+        for r in rows:
+            print(f"phase 1 {kind} loop: " + json.dumps(r), flush=True)
+        generic = max((sum(n for op, n in r["ops"].items() if op == "LD" or op.startswith("LD."))
+                       for r in rows), default=0)
+        check(any("LDS" in r["ops"] and "STS" in r["ops"] for r in rows) and generic <= 6,
+              f"the cluster {kind}'s loops do not keep their bands or halo in shared memory "
+              f"({generic} generic loads in a loop)")
+    check(any(any(op.startswith("SHFL") for op in r["ops"]) for r in loops["replay"]),
+          "the cluster replay's loops move no lane by shuffle")
     stamp(1)
 
     # -- phase 2: forward kernel against its plain version ---------------
@@ -875,9 +903,9 @@ def main() -> int:
     head = at_shape[0]
     stamp(6)
 
-    # -- phase 7: span kernel against its plain version: bands in shared
-    # memory (K = 3072) and in the global scratch (K = 6144), at full
-    # band and on a sub-band, with planes and without
+    # -- phase 7: span kernel against its plain version at K = 3072 and
+    # 6144, at full band and on the narrow replay's sub-band, with planes
+    # and without
     from allwave_tpu_torch.wfa import segmented as TS
 
     C = TS.SegmentedConfig().ckpt_every
@@ -904,19 +932,41 @@ def main() -> int:
             (SCORES, 24576, None, False, 6), (SCORES, 24576, None, False, 8),
             ("0,1,1,1", 3071, None, False, 8), (SCORES, 6144, 4481, False, 8),
             (SCORES, 1025, None, True, 8), ("0,5,8,2", 8191, None, True, 8))):
-        r = sweep_case(dev, sc, B=B, K=K, k_sub=k_sub, l_pad=8192, C=C, seg=2, seed=70 + i,
-                       edge=edge, reps=3)
+        r = cluster_case(dev, sc, B=B, K=K, k_sub=k_sub, l_pad=8192, C=C, seg=2, seed=70 + i,
+                         edge=edge, reps=3, planes=False)
         print("phase 7 sweep: " + json.dumps(r), flush=True)
         sweep7.append(r)
     sizes7 = {r["G"] for r in sweep7}
     check(sizes7 >= {1, 2, 3, 4, 5, 6, 8} and max(sizes7) > 8,
-          f"phase 7 did not run every cluster size: {sorted(sizes7)}")
+          f"phase 7 did not run every cluster size of the sweep: {sorted(sizes7)}")
+    # the replay at every cluster size its design takes on the engine's
+    # shapes (full bands 384 .. 4096: 1-8 blocks of 4 warps; the narrow
+    # window k_sub of a wider band: 9 where the card holds the batch's
+    # clusters at once, else 7), the widest band (16 blocks of 4 lanes a
+    # thread, or 8 of 8 where the card does not hold 8 such clusters),
+    # an odd band, an odd window at odd offsets, and the edge pairs
+    replay7 = []
+    for i, (sc, K, k_sub, edge, B) in enumerate((
+            (SCORES, 384, None, False, 6), (SCORES, 1024, None, False, 6),
+            (SCORES, 1536, None, False, 6), (SCORES, 2048, None, False, 6),
+            (SCORES, 3072, None, False, 6), ("0,5,8,2", 4096, None, False, 6),
+            (SCORES, 24576, k_sub_c, False, 6), (SCORES, 24576, k_sub_c, False, 16),
+            (SCORES, 24576, None, False, 6), (SCORES, 24576, None, False, 8),
+            ("0,1,1,1", 3071, None, False, 6), (SCORES, 6144, k_sub_c + 1, False, 6),
+            (SCORES, 1025, None, True, 7), ("0,5,8,2", 8191, None, True, 7))):
+        r = cluster_case(dev, sc, B=B, K=K, k_sub=k_sub, l_pad=8192, C=C, seg=2, seed=90 + i,
+                         edge=edge, reps=3, planes=True)
+        print("phase 7 replay: " + json.dumps(r), flush=True)
+        replay7.append(r)
+    sizes7 = {r["G"] for r in replay7}
+    check(sizes7 >= {1, 2, 3, 4, 6, 8} and max(sizes7) > 8,
+          f"phase 7 did not run every cluster size of the replay: {sorted(sizes7)}")
     # -- phase 8: the segment-traceback kernel on those segments' planes
     check(any(r["overflowed"] > 0 for r in tb8 if r["run_cap"] == 4),
           "run_cap=4 walks did not overflow")
     for r in tb8:
         print("phase 8 segment traceback: " + json.dumps(r), flush=True)
-    report["span"], report["segment_traceback"] = span7 + sweep7, tb8
+    report["span"], report["segment_traceback"] = span7 + sweep7 + replay7, tb8
     stamp("7-8")  # one helper runs both phases' cases
 
     # -- phase 9: the long-pair path, bench.py config 5_100kb -------------
@@ -932,6 +982,7 @@ def main() -> int:
     for lc in counts:
         lc.reset()
     TW.wf_stats.reset()
+    TS.seg_stats.reset()
     check("ALLWAVE_WFSEG" not in os.environ, "ALLWAVE_WFSEG is set: the router would be forced")
     t0 = time.perf_counter()
     rc = cli.main(["-i", fasta100, "-p", "none", "-o", paf100, "--no-progress"])
@@ -949,13 +1000,20 @@ def main() -> int:
     check(rc == 0, f"cli exit code {rc} on 5_100kb")
     check(all(v > 0 for v in launches_long.values()),
           f"the long path did not launch both kernels: {launches_long}")
-    check(all(g.cluster == (not sh[5]) for sh, g in span_designs.items()),
-          f"a sweep span did not take the cluster design, or a replay did: {span_designs}")
-    sweep_clusters = {
-        f"K={sh[1]} k_sub={sh[2]} G={g.blocks_per_pair} Lb={g.lanes_per_block}":
-            TS.sweep_max_clusters(sh[1], sh[2], sh[0], pen.two_piece)
-        for sh, g in sorted(span_designs.items()) if g.cluster
+    check(all(g.replay == sh[5] for sh, g in span_designs.items()),
+          f"a span did not take its cluster design: {span_designs}")
+    span_clusters = {
+        f"K={sh[1]} k_sub={sh[2]} planes={sh[5]} G={g.blocks_per_pair} Lb={g.lanes_per_block}":
+            TS.span_max_clusters(sh[1], sh[2], sh[5], sh[0], pen.two_piece)
+        for sh, g in sorted(span_designs.items())
     }
+    # the run buffers hold every run the certified scores allow: no pair
+    # is re-queued at the full run cap, so each certified pair is swept
+    # and replayed once at its band, and every replay has its walk
+    overflow_reruns = TS.seg_stats.overflow_reruns
+    check(overflow_reruns == 0, f"{overflow_reruns} pairs re-queued at the full run cap")
+    check(launches_long["dense_span_replay"] == launches_long["segment_traceback"]
+          == REPLAYS_5_100KB, f"not one replay and walk a segment of each group: {launches_long}")
     # every 5_100kb hint needs a band above the wavefront k_max: all 12
     # pairs go through the router to the wavefront engine and fall back
     fallbacks100 = TW.wf_stats.fallbacks
@@ -985,9 +1043,10 @@ def main() -> int:
         "launches": launches_long, "dense_forward_launches": D.forward_launches.count,
         "wavefront_fallbacks": fallbacks100,
         "span_shapes": sorted(span_shapes.items()), "segment_traceback_shapes": sorted(tb_shapes.items()),
-        "span_designs": [[*sh, g.cluster, g.blocks_per_pair, g.lanes_per_block, g.scratch]
-                         for sh, g in sorted(span_designs.items())],
-        "sweep_max_clusters": sweep_clusters, "scores": scores100,
+        "span_designs": [[*sh, g.replay, g.blocks_per_pair, g.lanes_per_block,
+                          g.lanes_per_thread] for sh, g in sorted(span_designs.items())],
+        "span_max_clusters": span_clusters, "overflow_reruns": overflow_reruns,
+        "scores": scores100,
     }
     print("phase 9 long path: " + json.dumps(p9), flush=True)
     report["long_path"] = p9
@@ -995,12 +1054,12 @@ def main() -> int:
     prof100 = profile_pipeline(seqs100, SCORES)
     if prof100:
         # DP cells the span kernel computed in the profiled run, by mode:
-        # the sweep's cluster kernel and the replay's one-block kernel
+        # the sweep's and the replay's cluster kernels
         by_k = prof100["device_ms_by_kernel"]
-        check(not any(k.startswith("dense_span_kernel<") and k.endswith("false>") for k in by_k),
-              "the one-block span kernel ran without planes in the profiled run")
+        check(any(k.startswith("dense_replay_cluster_kernel<") for k in by_k),
+              "the cluster replay did not run in the profiled run")
         for mode, planes, tag in (("sweep", False, "dense_sweep_cluster_kernel<"),
-                                  ("replay", True, "dense_span_kernel<")):
+                                  ("replay", True, "dense_replay_cluster_kernel<")):
             cells = sum(n * sh[0] * sh[2] * sh[4] for sh, n in TS.span_launches.shapes.items()
                         if sh[5] == planes)
             ms = sum(v for k, v in by_k.items() if k.startswith(tag))
@@ -1419,7 +1478,8 @@ def main() -> int:
             "source": "allwave_tpu_torch/csrc/dense_span.cu",
             "replaces": "allwave_tpu/wfa/pallas_span.py:208 (_span_call, with_choices=True)",
             "launches": launches_long["dense_span_replay"],
-            "max_abs_err": max(r["max_abs_err"] for r in span7 + span11 if r["with_planes"]),
+            "max_abs_err": max(r["max_abs_err"] for r in span7 + span11 + replay7
+                               if r.get("with_planes", True)),
             "ms": replay["ms"], "plain_ms": replay["plain_ms"], **replay_bound,
         },
         {

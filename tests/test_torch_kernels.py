@@ -179,8 +179,8 @@ def _segment_inputs(device, scores_str, B, l_pad, K, C, seed, div):
 )
 def test_span_kernel_matches_plain(cuda_device, scores_str, K, k_sub):
     """States and planes of one span at d_lo > 0, with and without
-    planes, at full band and on a sub-band (K = 6144 keeps the bands in
-    the global scratch)."""
+    planes, at full band and on a sub-band (K = 6144: a window of 896
+    lanes, two replay blocks a pair)."""
     from allwave_tpu_torch.wfa import segmented as TS
 
     l_pad, C = 1024, 128
@@ -224,7 +224,7 @@ def test_sweep_kernel_matches_plain(cuda_device, scores_str, K, k_sub, G):
     W = k_sub or K
     pen, batch, _, ckpts = _segment_inputs(cuda_device, scores_str, 4, l_pad, K, C, K, 0.05)
     design = TS.span_design(K, W, False, 4, pen.two_piece)
-    assert design.cluster and design.blocks_per_pair == G and not design.scratch
+    assert not design.replay and design.blocks_per_pair == G and design.lanes_per_thread == 0
     assert design.lanes_per_block % 2 == 0 and -(-W // design.lanes_per_block) == G
     c_lo = None
     if k_sub is not None:
@@ -238,6 +238,80 @@ def test_sweep_kernel_matches_plain(cuda_device, scores_str, K, k_sub, G):
         torch.cuda.synchronize()
         assert pl_k is None and torch.equal(st_k, st_p)
         assert TS.span_launches.designs == {(4, K, W, l_pad, n_steps, False): design}
+
+
+#: (scores, B, K, k_sub, G, lanes a thread): the replay's cluster design
+#: at the engine's full bands 384 .. 4096 and its narrow window k_sub =
+#: 4480 of a wider band (9 blocks where an H100 holds the batch's
+#: clusters at once), an odd full band (a short odd last block), an odd
+#: window at per-pair offsets, the widest band at 4 and 8 pairs (G = 16
+#: of 4 lanes a thread where the card holds the batch's clusters at
+#: once, else 8 of 8 lanes a thread)
+REPLAY_CASES = [("0,5,8,2,24,1", 4, 384, None, 1, 4), ("0,5,8,2,24,1", 4, 1024, None, 2, 4),
+                ("0,4,6,2", 4, 1536, None, 3, 4), ("0,5,8,2,24,1", 4, 2048, None, 4, 4),
+                ("0,5,8,2,24,1", 4, 3072, None, 6, 4), ("0,5,8,2,24,1", 4, 4096, None, 8, 4),
+                ("0,5,8,2,24,1", 6, 6144, 4480, 9, 4), ("0,1,1,1", 4, 3071, None, 6, 4),
+                ("0,5,8,2,24,1", 4, 6144, 4481, 9, 4), ("0,5,8,2,24,1", 4, 24576, None, 16, 4),
+                ("0,5,8,2,24,1", 8, 24576, None, 16, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scores_str,B,K,k_sub,G,lpt", REPLAY_CASES)
+def test_replay_kernel_matches_plain(cuda_device, scores_str, B, K, k_sub, G, lpt):
+    """The replay (a span with planes) runs the cluster kernel at the
+    design's G and lanes a thread and gives dense_span_ref's end state
+    and every plane entry exactly, over an even and an odd number of
+    steps from a kernel-made checkpoint; the launch records its design.
+    Where the card holds fewer of the widest clusters than the batch, the
+    design takes at most 8 blocks a pair instead."""
+    from allwave_tpu_torch.wfa import segmented as TS
+
+    l_pad, C, seg = 1024, 128, 5
+    W = k_sub or K
+    pen, batch, _, ckpts = _segment_inputs(cuda_device, scores_str, B, l_pad, K, C, K + B, 0.05)
+    design = TS.span_design(K, W, True, B, pen.two_piece)
+    assert design.replay and -(-W // design.lanes_per_block) == design.blocks_per_pair
+    assert design.lanes_per_block % (32 * design.lanes_per_thread) == 0
+    assert design.lanes_per_block <= 12 * 32 * design.lanes_per_thread
+    # a single cluster of the widest design always fits
+    if G > 8 and TS.span_max_clusters(K, W, True, 1, pen.two_piece) < B:
+        assert design.blocks_per_pair <= 8
+    else:
+        assert (design.blocks_per_pair, design.lanes_per_thread) == (G, lpt)
+    c_lo = None
+    if k_sub is not None:
+        c_lo = torch.tensor([(0, 1, 640, K - k_sub)[b % 4] for b in range(B)], dtype=torch.int32,
+                            device=cuda_device)
+    for n_steps in (C, 67):
+        TS.span_launches.reset()
+        st_k, pl_k = TS.dense_span(*batch, pen, K, l_pad, seg * C, n_steps, ckpts[:, seg], True,
+                                   c_lo=c_lo, k_sub=k_sub)
+        st_p, pl_p = TS.dense_span_ref(*batch, pen, K, l_pad, seg * C, n_steps, ckpts[:, seg], True,
+                                       c_lo=c_lo, k_sub=k_sub)
+        torch.cuda.synchronize()
+        assert torch.equal(st_k, st_p) and torch.equal(pl_k, pl_p)
+        assert TS.span_launches.designs == {(B, K, W, l_pad, n_steps, True): design}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scores_str,K,l_pad", [("0,5,8,2,24,1", 384, 512), ("0,4,6,2", 1025, 1024)])
+def test_replay_kernel_edge_pairs_match_plain(cuda_device, scores_str, K, l_pad):
+    """The replay of every segment of the edge pairs (lengths 0 and 1,
+    |k_end| = K - 1 where the band clips, an infeasible pair) from d = 0,
+    on checkpoints the kernel swept: every state and plane entry equals
+    the plain version's (K = 1025: three blocks, the last one odd)."""
+    from allwave_tpu_torch.wfa import segmented as TS
+
+    pen = resolve_penalties(parse_scores(scores_str))
+    arrays = edge_batch(np.random.RandomState(K + 1), 7, l_pad, K, 0.05)
+    batch = tuple(torch.from_numpy(a).to(cuda_device) for a in arrays)
+    C = 128
+    _, _, ckpts = TS.dense_sweep_ckpt(*batch, pen, K, l_pad, C)
+    for seg in range(ckpts.shape[1]):
+        st_k, pl_k = TS.dense_span(*batch, pen, K, l_pad, seg * C, C, ckpts[:, seg], True)
+        st_p, pl_p = TS.dense_span_ref(*batch, pen, K, l_pad, seg * C, C, ckpts[:, seg], True)
+        torch.cuda.synchronize()
+        assert torch.equal(st_k, st_p) and torch.equal(pl_k, pl_p)
 
 
 @pytest.mark.cuda

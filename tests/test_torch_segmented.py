@@ -255,6 +255,207 @@ def test_cluster_sweep_schedule_window_matches_plain(scores_str, G, c_lo):
     assert torch.equal(st_p, st_e)
 
 
+def _cluster_replay(qs, ts, qlens, tlens, pen, K, l_pad, d_lo, n_steps, state, nw, lpt,
+                    c_lo=None, k_sub=None, warp=32, stretch=32):
+    """A plain emulation of csrc/dense_span.cu's replay schedule
+    (`dense_replay_cluster_kernel`), to hold its index algebra on the CPU:
+    the window of W lanes split into G blocks of Lb = nw warps x `warp`
+    threads x lpt lanes (only the last block short), thread j of a block
+    holding lanes j lpt .. j lpt + lpt - 1 of S, I1, D1, I2, D2 and the
+    run band; a register's neighbour in the next thread by shuffle, at a
+    warp's ends from a double-buffered halo (a warp's last lane's S, I1,
+    I2 and first lane's S, D1, D2 after each step), the left and right
+    block's halos at a block's ends, INF past the window; the registers
+    of the step's parity M = (d - kb) & 1 inside [lo, hi] move; every
+    register's plane entry is computed before any register takes its new
+    value; the bases come from tables staged every `stretch` steps (the
+    kernel's SW_STRETCH is 4096) and read at (x >> 1) + floor((M - i) / 2)
+    and (y >> 1) + floor((M + i) / 2). A narrow `warp` keeps the shapes
+    small. Returns ((5, B, W) state, (n_steps, B, W) uint16 planes, G)."""
+    INF = 2**29
+    i64 = torch.int64
+    W = K if c_lo is None else k_sub
+    B = qs.shape[0]
+    T = nw * warp
+    Lb = T * lpt
+    G = -(-W // Lb)
+    two = pen.two_piece
+    qlens, tlens = qlens.to(i64), tlens.to(i64)
+    k_end = tlens - qlens
+    k0 = torch.minimum(k_end, torch.zeros_like(k_end)) - torch.div(K - 1 - k_end.abs(), 2, rounding_mode="floor")
+    k0 = k0 - (k0 & 1)
+    col0 = torch.zeros_like(k0) if c_lo is None else c_lo.to(i64).clamp(0, K - W)
+    r_ = torch.arange(G)[None, :, None]
+    t_ = torch.arange(T)[None, None, :]
+    i_ = torch.arange(lpt)
+    kb = (k0 + col0)[:, None] + torch.arange(G)[None, :] * Lb  # (B, G)
+    c0 = r_ * Lb + t_ * lpt  # (1, G, T): the window column of register 0
+    kt = kb[:, :, None] + t_ * lpt  # (B, G, T)
+    nin = W - c0
+    col = c0[..., None] + i_  # (1, G, T, lpt)
+    inside = (col < W).expand(B, G, T, lpt)
+    col = col.expand(B, G, T, lpt)
+    src = (col0[:, None, None, None] + col).clamp(max=K - 1)
+    rows = torch.arange(B)[:, None, None, None].expand(B, G, T, lpt)
+    regs = [torch.where(inside, state[band][rows, src].to(i64), INF) for band in range(5)]
+    run = torch.zeros((B, G, T, lpt), dtype=i64)
+    ql4, tl4 = qlens[:, None, None], tlens[:, None, None]
+
+    def write_halo(buf, halo):
+        S, I1, D1, I2, D2 = regs
+        last = lambda a: a[:, :, warp - 1::warp, lpt - 1]  # noqa: E731
+        first = lambda a: a[:, :, ::warp, 0]  # noqa: E731
+        inf = torch.full_like(last(S), INF)
+        halo[buf] = torch.stack([last(S), last(I1), last(I2) if two else inf,
+                                 first(S), first(D1), first(D2) if two else inf], -1)
+
+    halo = torch.full((2, B, G, nw, 6), -7, dtype=i64)  # -7: never read
+    write_halo(0, halo)
+    planes = torch.empty((n_steps, B, W), dtype=torch.int64)
+    lane0, lane_last = (t_ % warp == 0).expand(B, G, T), (t_ % warp == warp - 1).expand(B, G, T)
+    for s in range(n_steps):
+        d = d_lo + 1 + s
+        if s % stretch == 0:
+            tbl = (stretch + Lb) // 2 + 2
+            vmin = (d - kb - (Lb - 1)) >> 1
+            hmin = (d + kb) >> 1
+            ii = torch.arange(tbl)
+            qi = (qlens[:, None, None] - (vmin[..., None] + ii)).clamp(0, l_pad - 1)
+            qt = torch.gather(qs.long()[:, None, :].expand(B, G, l_pad), 2,
+                              (qlens[:, None, None] - 1 - qi).clamp(0, l_pad - 1))
+            tt = torch.gather(ts.long()[:, None, :].expand(B, G, l_pad), 2,
+                              (hmin[..., None] + ii - 1).clamp(0, l_pad - 1))
+        M = (d - kb) & 1
+        assert bool((M == M[:, :1]).all()), "Lb even: one parity moves in every block"
+        cur = halo[s & 1]
+        inf3 = torch.full((B, 1, 3), INF, dtype=i64)
+        # a warp's left neighbour: the warp before, or the left block's
+        # last warp; its right neighbour: the warp after, or the right
+        # block's first warp
+        left_h = torch.cat([torch.cat([inf3, cur[:, :-1, nw - 1, 0:3]], 1)[:, :, None],
+                            cur[:, :, :-1, 0:3]], 2)  # (B, G, nw, 3)
+        right_h = torch.cat([cur[:, :, 1:, 3:6],
+                             torch.cat([cur[:, 1:, 0, 3:6], inf3], 1)[:, :, None]], 2)
+        wl = (t_ // warp).expand(B, G, T)
+        S, I1, D1, I2, D2 = regs
+
+        def from_left(a, x):  # shuffle up a thread, the halo at lane 0
+            up = torch.roll(a[..., lpt - 1], 1, dims=2)
+            return torch.where(lane0, torch.gather(left_h[..., x], 2, wl), up)
+
+        def from_right(a, x):  # shuffle down a thread, the halo at the warp's last lane
+            down = torch.roll(a[..., 0], -1, dims=2)
+            return torch.where(lane_last, torch.gather(right_h[..., x], 2, wl), down)
+
+        def left_of(a, x):
+            return torch.cat([from_left(a, x)[..., None], a[..., :-1]], -1)
+
+        def right_of(a, x):
+            return torch.cat([a[..., 1:], from_right(a, x - 3)[..., None]], -1)
+
+        s_km1, s_kp1 = left_of(S, 0), right_of(S, 3)
+        i1e, i1o = left_of(I1, 1) + pen.e1, s_km1 + (pen.o1 + pen.e1)
+        d1e, d1o = right_of(D1, 4) + pen.e1, s_kp1 + (pen.o1 + pen.e1)
+        i1n, d1n = torch.minimum(i1o, i1e), torch.minimum(d1o, d1e)
+        if two:
+            i2e, i2o = left_of(I2, 2) + pen.e2, s_km1 + (pen.o2 + pen.e2)
+            d2e, d2o = right_of(D2, 5) + pen.e2, s_kp1 + (pen.o2 + pen.e2)
+            i2n, d2n = torch.minimum(i2o, i2e), torch.minimum(d2o, d2e)
+            bi, bd = torch.minimum(i1n, i2n), torch.minimum(d1n, d2n)
+            best = torch.minimum(bi, bd)
+            code = torch.where(bi <= bd, torch.where(i1n <= i2n, 2, 3), torch.where(d1n <= d2n, 4, 5))
+            i2x, d2x = (i2e <= i2o).long(), (d2e <= d2o).long()
+        else:
+            best = torch.minimum(i1n, d1n)
+            code = torch.where(i1n <= d1n, 2, 4)
+            i2x = d2x = 0
+        x, y = d - kt, d + kt
+        Mr = M[:, :, None, None]
+        v = (x >> 1)[..., None] - vmin[:, :, None, None] + torch.div(Mr - i_, 2, rounding_mode="floor")
+        h = (y >> 1)[..., None] - hmin[:, :, None, None] + torch.div(Mr + i_, 2, rounding_mode="floor")
+        assert int(v.min()) >= 0 and int(h.max()) < tbl, "the tables cover every lane"
+        match = torch.gather(qt, 2, v.flatten(2)).view_as(v) == torch.gather(tt, 2, h.flatten(2)).view_as(h)
+        lo = torch.maximum(-y, x - 2 * ql4)[..., None]
+        hi = torch.minimum(torch.minimum(x, 2 * tl4 - y), nin - 1)[..., None]
+        diag_ok = (i_ >= (2 - y)[..., None]) & (i_ <= (x - 2)[..., None])
+        diag = torch.where(diag_ok, S + torch.where(match, 0, pen.x), INF)
+        sn = torch.minimum(diag, best)
+        choice = torch.where((diag <= best) & diag_ok & ~match, 1, torch.where(best == sn, code, 0))
+        packed = choice | ((i1e <= i1o).long() << 3) | ((d1e <= d1o).long() << 4) | (i2x << 5) | (d2x << 6)
+        newrun = torch.where(choice == 0, run.clamp(max=254) + 1, 0)
+        entry = packed | (newrun << 8)
+        planes[s, rows[inside], col[inside]] = entry[inside]
+        active = ((i_ & 1) == Mr) & (i_ >= lo) & (i_ <= hi)
+        new = [sn, i1n, d1n] + ([i2n, d2n] if two else [I2, D2])
+        regs = [torch.where(active, n.clamp(max=INF), o) for n, o in zip(new, regs)]
+        run = torch.where(active, newrun, run)
+        write_halo((s + 1) & 1, halo)
+    out = torch.empty((5, B, W), dtype=torch.int32)
+    for band in range(5):
+        out[band, rows[inside], col[inside]] = regs[band][inside].to(torch.int32)
+    return out, planes.to(torch.int32).to(torch.uint16), G
+
+
+@pytest.mark.parametrize(
+    "scores_str,K,nw,lpt,warp,seg,n_steps,edge,G",
+    [
+        ("0,5,8,2,24,1", 201, 2, 4, 8, 2, 67, False, 4),  # odd W, a short last block of 9
+        ("0,4,6,2", 201, 1, 8, 8, 2, 64, False, 4),  # one-piece, 8 lanes a thread
+        ("0,1,1,1", 200, 4, 4, 16, 3, 33, False, 1),  # one block
+        ("0,5,8,2,24,1", 127, 1, 4, 8, 0, 97, True, 4),  # edge pairs from d = 0
+    ],
+)
+def test_cluster_replay_schedule_matches_xla(scores_str, K, nw, lpt, warp, seg, n_steps, edge, G):
+    """The replay kernel's cluster schedule, emulated, gives the XLA
+    span's end state and both planes exactly, every entry reachable or
+    not, at full band, from a checkpoint of the reference's sweep: random
+    pairs at d_lo > 0, and from d = 0 the edge pairs of
+    testing.batches.edge_batch (lengths 0 and 1, |k_end| = K - 1 where the
+    band clips, infeasible)."""
+    from allwave_tpu_torch.testing.batches import edge_batch
+
+    pen = _pen(scores_str)
+    l_pad, C = 256, 64
+    if edge:
+        arrays = edge_batch(np.random.RandomState(K + 1), 7, l_pad, K, 0.05)
+        ja, ta = tuple(map(jnp.asarray, arrays)), tuple(map(torch.from_numpy, arrays))
+    else:
+        ja, ta = _batch(K + nw, 4, 240, l_pad, 0.08)
+    _, _, ck_j = JS.dense_sweep_ckpt(*ja, pen, K, l_pad, C, impl="xla")
+    st_j, (ch_j, rn_j) = JS.dense_span_xla(
+        *ja, pen, K, l_pad, jnp.int32(seg * C), n_steps, tuple(c[seg] for c in ck_j), True
+    )
+    st_e, pl_e, g = _cluster_replay(*ta, pen, K, l_pad, seg * C, n_steps, _state(ck_j, seg),
+                                    nw, lpt, warp=warp)
+    assert g == G
+    for comp in range(5):
+        _eq(st_j[comp], st_e[comp])
+    p = pl_e.to(torch.int32)
+    _eq(ch_j, (p & 0xFF).to(torch.uint8))
+    _eq(rn_j, (p >> 8).to(torch.uint8))
+
+
+@pytest.mark.parametrize(
+    "scores_str,nw,lpt,c_lo", [("0,5,8,2,24,1", 2, 4, (0, 128, 183, 61)),
+                               ("0,4,6,2", 1, 8, (7, 0, 100, 183))]
+)
+def test_cluster_replay_schedule_window_matches_plain(scores_str, nw, lpt, c_lo):
+    """The emulated replay on a window of k_sub = 201 lanes of a band of
+    384 at per-pair offsets, odd ones included (the window's first lane
+    then has odd k, and the moving registers change parity), over 65
+    steps: the end state and every plane entry equal dense_span_ref's."""
+    pen = _pen(scores_str)
+    l_pad, K, k_sub, C, seg = 256, 384, 201, 64, 2
+    _, ta = _batch(nw + lpt, 4, 250, l_pad, 0.1)
+    _, _, ck = TS.dense_sweep_ckpt(*ta, pen, K, l_pad, C)
+    c = torch.tensor(c_lo, dtype=torch.int32)
+    st_p, pl_p = TS.dense_span_ref(*ta, pen, K, l_pad, seg * C, 65, ck[:, seg], True, c_lo=c, k_sub=k_sub)
+    st_e, pl_e, g = _cluster_replay(*ta, pen, K, l_pad, seg * C, 65, ck[:, seg], nw, lpt,
+                                    c_lo=c, k_sub=k_sub, warp=8)
+    assert g == 4
+    assert torch.equal(st_p, st_e) and torch.equal(pl_p, pl_e)
+
+
 def test_sweep_bound_and_infeasible():
     """A cut-short sweep (n_seg below the matrix) leaves long pairs
     infeasible; a band too narrow for the length difference gives INF."""
@@ -445,16 +646,87 @@ def test_engine_matches_xla_with_hints_narrow(groups):
 
 def test_engine_matches_xla_overflow_rerun_and_failure(monkeypatch, groups):
     """A run buffer too small reruns the pair at the full cap 2L+8; at a
-    small k_max the divergent pairs fail (None) in both."""
+    small k_max the divergent pairs fail (None) in both. The port's run
+    bound is patched small too, so its rerun guard is what runs."""
     pen = _pen("0,5,8,2,24,1")
     for cls in (JS.SegmentedDenseAligner, TS.SegmentedDenseAligner):
         monkeypatch.setattr(cls, "_run_cap", lambda self, l_pad: 6)
+    monkeypatch.setattr(TS.SegmentedDenseAligner, "_runs_bound", lambda self, *a: 1)
     pairs = _pairs(51, 2, 100, 0.08) + _pairs(52, 1, 100, 0.75, indel=0.1)
     res = _segmented_both(pen, pairs, ckpt_every=64)
     assert all(r is not None for r in res)
     assert (128, 6, 3, False) in groups and any(cap == 2 * 128 + 8 for _, cap, *_ in groups)
     res = _segmented_both(pen, pairs, k_max=128, ckpt_every=64)
     assert res[0] is not None and res[2] is None
+
+
+def _bound_pairs(seed):
+    """Pairs whose walks stress the run bound: an identical pair (match
+    stretches past 255 bases across many segment edges), one with 300-
+    and 200-base gaps, a near-identical one, one with many short indels,
+    and an unrelated one."""
+    rng = np.random.RandomState(seed)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    q = rng.choice(bases, 700)
+    gapped = np.concatenate([q[:150], q[450:], rng.choice(bases, 200)])
+    near = q.copy()
+    near[rng.rand(q.size) < 0.004] = rng.choice(bases, 1)
+    out = [(q, q), (q, gapped), (q, near)]
+    out += [(p[0], p[1]) for p in
+            ((np.frombuffer(a, np.uint8), np.frombuffer(b, np.uint8))
+             for a, b in _pairs(seed + 1, 1, 600, 0.05, indel=0.03) + _pairs(seed + 2, 1, 400, 0.75))]
+    return out
+
+
+@pytest.mark.parametrize("scores_str", ["0,5,8,2,24,1", "0,4,6,2"])
+def test_runs_bound_holds_for_every_walk(scores_str):
+    """For each certified pair, the run bound the engine sizes its run
+    buffers from is at least the runs its walk emits: the segmented
+    sweep and walk at a band that covers the whole matrix (so every pair
+    is certified), C = 64 (many segment edges), the open run's flush
+    counted."""
+    pen = _pen(scores_str)
+    pairs = _bound_pairs(5)
+    B, l_pad, C = len(pairs), 1024, 64
+    qs = np.zeros((B, l_pad), np.uint8)
+    ts = np.zeros((B, l_pad), np.uint8)
+    for b, (q, t) in enumerate(pairs):
+        qs[b, : q.size], ts[b, : t.size] = q, t
+    ql = np.array([q.size for q, _ in pairs], np.int32)
+    tl = np.array([t.size for _, t in pairs], np.int32)
+    K = int((ql + tl).max()) + 3
+    qs_t, ts_t, ql_t, tl_t = map(torch.from_numpy, (qs, ts, ql, tl))
+    n_seg = -(-int((ql + tl).max()) // C)
+    scores, cert, ckpts = TS.dense_sweep_ckpt(qs_t, ts_t, ql_t, tl_t, pen, K, l_pad, C, n_seg=n_seg)
+    assert bool(cert.all())
+    k_end, k0, _ = TD.band_geometry(ql_t, tl_t, K)
+    walk = TS.new_walk(ql_t + tl_t, (k_end - k0).clamp(0, K - 1), cert)
+    bufs = TS.new_bufs(B, 2 * l_pad + 8, "cpu")
+    for seg in range(n_seg - 1, -1, -1):
+        _, planes = TS.dense_span_ref(qs_t, ts_t, ql_t, tl_t, pen, K, l_pad, seg * C, C, ckpts[:, seg], True)
+        TS.traceback_segment_ref(planes, seg * C, walk, bufs)
+    assert not bool(bufs[3].any()) and not bool(walk[3].any())
+    nrun = bufs[2] + (walk[5] > 0).to(torch.int32)
+    eng = TS.SegmentedDenseAligner(pen, device="cpu")
+    for b in range(B):
+        bound = eng._runs_bound(int(scores[b]), int(ql[b]), int(tl[b]), -(-int(ql[b] + tl[b]) // C))
+        assert bound >= int(nrun[b]), (b, bound, int(nrun[b]))
+
+
+def test_engine_sizes_run_buffers_from_scores(monkeypatch, groups):
+    """With _run_cap small in both packages, the port sizes each group's
+    run buffers from its certified scores: no group is re-queued at the
+    full cap 2L+8 (the reference reruns there), and the results are the
+    reference's."""
+    pen = _pen("0,5,8,2,24,1")
+    for cls in (JS.SegmentedDenseAligner, TS.SegmentedDenseAligner):
+        monkeypatch.setattr(cls, "_run_cap", lambda self, l_pad: 6)
+    pairs = _pairs(53, 1, 160, 0.08, indel=0.01) + _pairs(54, 1, 120, 0.3)
+    pairs.append((pairs[0][0], pairs[0][0]))
+    TS.seg_stats.reset()
+    res = _segmented_both(pen, pairs, ckpt_every=64)
+    assert all(r is not None for r in res)
+    assert all(cap == 6 for _, cap, *_ in groups) and TS.seg_stats.overflow_reruns == 0
 
 
 @pytest.mark.parametrize("scores_str", ["0,5,8,2,24,1", "0,4,6,2"])
