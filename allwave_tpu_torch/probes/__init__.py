@@ -25,4 +25,8 @@ version and times it at the experiment's own size on the card, beside
 its bound. Like the engines' wrappers, each probe's wrapper runs the
 plain version for CPU tensors and launches the kernel (or raises) for
 CUDA tensors, and counts its launches.
+
+`wf_level_split` is no experiment's port: it times the wavefront sweep
+kernel of csrc/wf_span.cu a level on three inputs of one shape, from
+this tree or another (a before and after on one card).
 """

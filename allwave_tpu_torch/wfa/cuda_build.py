@@ -79,7 +79,8 @@ SIGNATURES = {
         ),
     },
     "wf_span": {
-        "allwave_wf_span": ([_P] * 5 + [_I] * 24 + [_P] * 9, _I),
+        "allwave_wf_span": ([_P] * 5 + [_I] * 25 + [_P] * 8, _I),
+        "allwave_wf_span_design": ([_I] * 6 + [_P], _I),
     },
     "wf_traceback": {
         "allwave_wf_traceback": (

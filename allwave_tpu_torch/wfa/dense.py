@@ -62,8 +62,8 @@ class LaunchCount:
     """Kernel launches through one wrapper, the widest band K any of
     them ran, and the launches at each distinct shape: (B, K, l_pad)
     for the forward, (B, K, l_pad, run_cap) for the traceback; for the
-    forward and the span also the design each shape ran (`ForwardDesign`,
-    `segmented.SpanDesign`)."""
+    forward and the spans also the design each shape ran (`ForwardDesign`,
+    `segmented.SpanDesign`, `wf_segmented.WfSpanDesign`)."""
 
     count: int = 0
     widest_k: int = 0

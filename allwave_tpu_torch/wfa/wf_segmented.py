@@ -31,14 +31,16 @@ Each step has a plain version (`wf_span_ref`, `traceback_window_ref`)
 and a hand-written CUDA kernel (csrc/wf_span.cu, csrc/wf_traceback.cu).
 The wrappers `wf_span` and `wf_traceback` pick by the tensors' device:
 CPU tensors take the plain version, CUDA tensors the kernel and nothing
-else. Launches are counted by shape in `wf_span_launches` and
-`wf_traceback_launches`.
+else. The span kernel is a thread-block cluster a pair; its C function
+`allwave_wf_span_design` says how a span is spread, and `wf_span_design`
+reads it. Launches are counted by shape in `wf_span_launches` (with
+each shape's design) and `wf_traceback_launches`.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -65,7 +67,8 @@ _COMPS = ("m", "i1", "d1", "i2", "d2")
 _I32 = torch.int32
 
 #: span kernel launches, shapes (B, K, W, l_pad, n_steps, with_history)
-#: (W = K on a full-band span; a sweep's n_steps is its score cap)
+#: (W = K on a full-band span; a sweep's n_steps is its score cap), and
+#: the design of each shape
 wf_span_launches = LaunchCount()
 #: window-traceback kernel launches, shapes (B, K, W, n_steps, run_cap)
 wf_traceback_launches = LaunchCount()
@@ -378,9 +381,49 @@ def wf_span_ref(
     return ckpts, None, done, scores
 
 
-#: widest ring image (bytes) the span kernel keeps in shared memory; a
-#: wider one lives in a per-pair global scratch (B, P, W)
-SMEM_MAX_RING_BYTES = 200 * 1024
+class WfSpanDesign(NamedTuple):
+    """What csrc/wf_span.cu runs for a span over W lanes of a band K: the
+    fields of the code `allwave_wf_span_design` returns. Both modes are a
+    thread-block cluster a pair."""
+
+    code: int
+    history: bool  # the history mode, else the sweep
+    blocks_per_pair: int  # G, the cluster
+    lanes_per_thread: int
+    lanes_per_block: int  # Lb
+    clusters_held: int  # of this design, by the card at once
+
+
+#: designs by (device, K, W, history, B, two_piece, P): the C dispatch
+#: asks the occupancy API up to six times, so it runs once a shape
+_span_designs: Dict[tuple, WfSpanDesign] = {}
+
+
+def wf_span_design(K: int, W: int, with_history: bool, B: int, pen: Penalties) -> WfSpanDesign:
+    """The span kernel's design for B pairs on a window of W lanes of a
+    band K, from its C dispatch (the cluster size depends on how many of
+    B's clusters the card holds at once, and a block's ring on the
+    penalties' P planes), once a shape. Raises for a window no design
+    takes."""
+    import ctypes
+
+    from . import cuda_build
+
+    P = ring_layout(pen)[2]
+    key = (torch.cuda.current_device(), K, W, bool(with_history), B, bool(pen.two_piece), P)
+    if key not in _span_designs:
+        held = ctypes.c_int(0)
+        code = cuda_build.library("wf_span").allwave_wf_span_design(
+            K, W, int(with_history), B, int(pen.two_piece), P, ctypes.byref(held)
+        )
+        if code < 0:
+            raise ValueError(f"no wf span design for K={K} W={W} P={P} history={with_history}")
+        if held.value < 0:
+            cuda_build.check(-held.value, "cudaOccupancyMaxActiveClusters")
+        _span_designs[key] = WfSpanDesign(
+            code, bool(code & 1), (code >> 1) & 31, (code >> 6) & 15, code >> 10, held.value
+        )
+    return _span_designs[key]
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -393,9 +436,9 @@ def wf_span(
     scores=None, c_lo=None, k_sub=None,
 ):
     """The span: the plain version for CPU tensors, the csrc/wf_span.cu
-    kernel for CUDA tensors (same contract as `wf_span_ref`). `ring` may
-    be one slot of a checkpoint tensor. c_lo must lie in
-    [0, K - k_sub]."""
+    kernel for CUDA tensors (same contract as `wf_span_ref`), a cluster
+    of blocks a pair as `wf_span_design` says. `ring` may be one slot of
+    a checkpoint tensor. c_lo must lie in [0, K - k_sub]."""
     if D_._device_kind(qs) == "cpu":
         return wf_span_ref(
             qs, ts, qlens, tlens, pen, k_width, l_pad, s_lo, n_steps, ring,
@@ -437,21 +480,19 @@ def wf_span(
         ckpts = torch.full((n_steps // ckpt_every, P, B, K), NULL, dtype=_I32, device=dev)
         done_out = torch.empty_like(done)
         scores_out = torch.empty_like(scores)
-    scratch = None
-    if 4 * P * W > SMEM_MAX_RING_BYTES:
-        scratch = torch.empty((B, P, W), dtype=_I32, device=dev)
+    design = wf_span_design(K, W, with_history, B, pen)
     lib = cuda_build.library("wf_span")
     rc = lib.allwave_wf_span(
         qs.data_ptr(), ts.data_ptr(), qlens.data_ptr(), tlens.data_ptr(), _ptr(c_lo),
         B, l_pad, K, W, s_lo, n_steps, 0 if with_history else ckpt_every,
         pen.x, pen.o1, pen.e1, pen.o2, pen.e2, int(pen.two_piece),
-        *offs, *deps, P,
+        *offs, *deps, P, design.code,
         ring.data_ptr(), _ptr(ckpts), _ptr(hist), _ptr(done), _ptr(scores),
-        _ptr(done_out), _ptr(scores_out), _ptr(scratch),
+        _ptr(done_out), _ptr(scores_out),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.check(rc, "wf_span kernel launch")
-    wf_span_launches.launched((B, K, W, l_pad, n_steps, bool(with_history)))
+    wf_span_launches.launched((B, K, W, l_pad, n_steps, bool(with_history)), design)
     return ckpts, hist, done_out, scores_out
 
 

@@ -37,15 +37,19 @@ the port's three engines and runs the probes:
   at every shape phase 9 launched (phase 11);
 * the wavefront long-pair path (phases 12-15): the wavefront span
   kernel (sweep with ring checkpoints, history replay at full band and
-  on the narrow sub-band) and the window-traceback kernel against their
-  plain versions at small shapes, three penalty sets, an identical, a
-  tlen == l_pad and an infeasible pair, and run buffers that fit and
-  that overflow (phases 12-13); bench.py's config 5b_100kb_lowdiv
-  (8 x 100 kb at 0.25%, 56 directed pairs) through the CLI and the
-  AllPairAligner, with a profile, and the same 56 pairs through the
-  segmented engine, which must give the same bytes (phase 14); and both
-  kernels again at every band phase 14 launched, at its widest batch
-  (phase 15);
+  on the narrow sub-band; a thread-block cluster a pair, at every
+  cluster size its design takes) and the window-traceback kernel
+  against their plain versions at small shapes, three penalty sets, an
+  identical, a tlen == l_pad and an infeasible pair, and run buffers
+  that fit and that overflow (phases 12-13; phase 1 prints the span's
+  registers and spills and fails on a spill or a division in its
+  loops); bench.py's config 5b_100kb_lowdiv (8 x 100 kb at 0.25%, 56
+  directed pairs) through the CLI and the AllPairAligner, with a
+  profile, and the same 56 pairs through the segmented engine, which
+  must give the same bytes (phase 14); and both kernels again at every
+  band phase 14 launched, at its widest batch, then the sweep at the
+  widest round on 5b, tandem-repeat and random pairs of its shape (the
+  extension's share of a level) (phase 15);
 * the probes (phase 16, allwave_tpu_torch/probes, the ports of the
   Pallas experiments in scripts/experiments): each probe kernel against
   its plain version at a reduced shape and at the experiment's own
@@ -446,10 +450,13 @@ def wf_sweep_check(pen, batch, init, K, l_pad, C, n_steps, reps, at):
     del ck_p
     ms = time_ms(lambda: TW.wf_span(*args, **kw), reps)
     B = batch[0].shape[0]
+    g = TW.wf_span_design(K, K, False, B, pen)
     return {
         "mode": "sweep", "B": B, "K": K, "W": K, "l_pad": l_pad, "n_steps": n_steps,
-        "ckpt_every": C, "done": int(d_k.sum()), "max_abs_err": int((s_k - s_p).abs().max()),
-        "tolerance": 0, "ms": ms, "plain_ms": plain_ms,
+        "ckpt_every": C, "G": g.blocks_per_pair, "Lb": g.lanes_per_block,
+        "lanes_per_thread": g.lanes_per_thread, "done": int(d_k.sum()),
+        "max_abs_err": int((s_k - s_p).abs().max()), "tolerance": 0, "ms": ms,
+        "plain_ms": plain_ms, "levels_run": int(torch.where(d_k, s_k, n_steps).max()),
         # a pair's sweep stops after the level it finished at
         "lane_levels": int(torch.where(d_k, s_k, n_steps).sum()) * K,
         "ckpt_bytes": ck_k.numel() * ck_k.element_size(),
@@ -470,11 +477,14 @@ def wf_hist_check(pen, batch, K, l_pad, C, seg, ring, c_lo, k_sub, reps, at):
     check(torch.equal(h_k, h_p), f"history planes differ at {at} narrow={c_lo is not None}")
     err = int((h_k.to(torch.int64) - h_p.to(torch.int64)).abs().max())
     ms = time_ms(lambda: TW.wf_span(*args, **kw), reps)
-    W = h_k.shape[3]
+    B, W = batch[0].shape[0], h_k.shape[3]
+    g = TW.wf_span_design(K, W, True, B, pen)
     return {
-        "mode": "history", "B": batch[0].shape[0], "K": K, "W": W, "l_pad": l_pad,
-        "s_lo": seg * C, "n_steps": C, "max_abs_err": err, "tolerance": 0, "ms": ms,
-        "plain_ms": plain_ms, "lane_levels_per_s": batch[0].shape[0] * C * W / (ms * 1e-3),
+        "mode": "history", "B": B, "K": K, "W": W, "l_pad": l_pad, "s_lo": seg * C,
+        "n_steps": C, "G": g.blocks_per_pair, "Lb": g.lanes_per_block,
+        "lanes_per_thread": g.lanes_per_thread, "max_abs_err": err, "tolerance": 0, "ms": ms,
+        "plain_ms": plain_ms, "lane_levels_per_s": B * C * W / (ms * 1e-3),
+        "ring_bytes": TW.ring_layout(pen)[2] * B * W * 4, "plane_bytes": h_k.numel() * 4,
     }, h_k
 
 
@@ -662,6 +672,15 @@ def _short(kernel_name: str) -> str:
     return name[:80]
 
 
+def _wf_span_mode(short_name: str):
+    """True for the wavefront span's history instantiation, False for its
+    sweep, None for any other kernel (`wf_span_cluster_kernel<HIST,
+    TWO_PIECE>`, its template arguments as `true` or `(bool)1`)."""
+    if not short_name.startswith("wf_span_cluster_kernel<"):
+        return None
+    return short_name.split("<", 1)[1].split(",")[0].strip() in ("true", "(bool)1", "1")
+
+
 def main() -> int:
     try:
         import torch
@@ -749,6 +768,28 @@ def main() -> int:
               f"({generic} generic loads in a loop)")
     check(any(any(op.startswith("SHFL") for op in r["ops"]) for r in loops["replay"]),
           "the cluster replay's loops move no lane by shuffle")
+    # the wavefront span's four instantiations (sweep and history, one-
+    # and two-piece): registers and spills, none may spill; their loops
+    # keep the rings in shared memory (LDS/STS), extend by warp votes
+    # (VOTE) and divide nowhere (no MUFU.RCP, the reciprocal a division
+    # by a runtime divisor compiles to)
+    wf_usage = {fn: u for fn, u in cuda_build.ptxas_usage("wf_span").items()
+                if "wf_span_cluster_kernel" in fn}
+    for fn, u in sorted(wf_usage.items()):
+        print("phase 1 ptxas: " + json.dumps({"kernel": _short(fn), **u}), flush=True)
+    report["wf_span_ptxas"] = {_short(fn): u for fn, u in wf_usage.items()}
+    check(len(wf_usage) == 4 and all(u.get("spill_stores", 1) == 0 and u.get("spill_loads", 1) == 0
+                                     for u in wf_usage.values()),
+          f"a wavefront span kernel spills: {wf_usage}")
+    wf_loops = [r for r in SA.report(["wf_span"]) if "wf_span_cluster_kernel" in r["function"]]
+    for r in wf_loops:
+        print("phase 1 wf span loop: " + json.dumps(r), flush=True)
+    check(len({r["function"] for r in wf_loops}) == 4
+          and not any(op.startswith("MUFU.RCP") for r in wf_loops for op in r["ops"])
+          and any("LDS" in r["ops"] and "STS" in r["ops"] for r in wf_loops)
+          and any(op.startswith("VOTE") for r in wf_loops for op in r["ops"]),
+          "the wavefront span's loops divide, or keep their rings out of shared memory, "
+          "or extend without warp votes")
     stamp(1)
 
     # -- phase 2: forward kernel against its plain version ---------------
@@ -1133,13 +1174,21 @@ def main() -> int:
     # -- phase 12: the wavefront span kernel against its plain version at
     # small shapes: the sweep (scores, done, every checkpoint slot) for
     # three penalty sets, then history spans from a kernel-made
-    # checkpoint at full band and on the narrow sub-band
+    # checkpoint at full band and on the narrow sub-band; then both modes
+    # at every cluster size the design takes (G = ceil(W / 256): bands
+    # 512 .. 6144, an odd band and an odd sub-band; above 8 blocks where
+    # the card holds the batch's clusters at once)
     from allwave_tpu_torch.wfa.segmented import narrow_offsets
 
     wf12, chains = [], []
-    for sc, K, l_pad, C, N in ((SCORES, 256, 2048, 64, 1024), ("0,5,8,2", 256, 2048, 64, 1024),
-                               ("0,1,1,1", 256, 2048, 64, 1024), (SCORES, 2048, 4096, 256, 1024)):
-        k_sub = -(-(2 * C + 320) // 512) * 512
+    for sc, K, l_pad, C, N, k_sub in (
+            (SCORES, 256, 2048, 64, 1024, None), ("0,5,8,2", 256, 2048, 64, 1024, None),
+            ("0,1,1,1", 256, 2048, 64, 1024, None), (SCORES, 2048, 4096, 256, 1024, None),
+            (SCORES, 512, 768, 64, 256, 256), ("0,5,8,2", 768, 1024, 64, 256, 512),
+            (SCORES, 1001, 1280, 64, 256, 512), ("0,1,1,1", 1280, 1536, 64, 256, 512),
+            (SCORES, 1536, 2048, 64, 256, 1023), (SCORES, 3072, 4096, 64, 256, 1280),
+            ("0,5,8,2", 4096, 4352, 64, 256, 1024), (SCORES, 6144, 6400, 64, 256, 1024)):
+        k_sub = k_sub or -(-(2 * C + 320) // 512) * 512
         pen_c, batch, init = wf_inputs(dev, sc, l_pad, K, seed=K + len(sc), div=0.01)
         at = f"{sc} K={K} l_pad={l_pad}"
         r, (ck, done, scores) = wf_sweep_check(pen_c, batch, init, K, l_pad, C, N, 3, at)
@@ -1153,10 +1202,14 @@ def main() -> int:
             c_lo = narrow_offsets(init.c_end, K, k_sub)
             wf12.append({"scores": sc, **wf_hist_check(pen_c, batch, K, l_pad, C, seg, ck[seg],
                                                         c_lo, k_sub, 3, at)[0]})
-        if sc == SCORES:
+        if sc == SCORES and N == 1024:
             chains.append((pen_c, batch, init, ck, done, scores, K, l_pad, C, k_sub))
     for r in wf12:
         print("phase 12 wf span: " + json.dumps(r), flush=True)
+    for mode in ("sweep", "history"):
+        sizes12 = {r["G"] for r in wf12 if r["mode"] == mode}
+        check(sizes12 >= {1, 2, 3, 4, 5, 6, 8} and max(sizes12) > 8,
+              f"phase 12 did not run every cluster size of the {mode}: {sorted(sizes12)}")
     stamp(12)
 
     # -- phase 13: the window-traceback kernel against its plain version
@@ -1189,11 +1242,13 @@ def main() -> int:
     rc = cli.main(["-i", fasta5b, "-p", "none", "-o", paf5b, "--no-progress"])
     torch.cuda.synchronize()
     cli5b_s = time.perf_counter() - t0
+    wf_span_shapes = dict(TW.wf_span_launches.shapes)
     launches_wf = {
-        "wf_span": TW.wf_span_launches.count,
+        "wf_span_sweep": sum(n for sh, n in wf_span_shapes.items() if not sh[5]),
+        "wf_span_history": sum(n for sh, n in wf_span_shapes.items() if sh[5]),
         "wf_traceback": TW.wf_traceback_launches.count,
     }
-    wf_span_shapes = dict(TW.wf_span_launches.shapes)
+    wf_span_designs = {str(sh): g._asdict() for sh, g in TW.wf_span_launches.designs.items()}
     wf_tb_shapes = dict(TW.wf_traceback_launches.shapes)
     rounds5b = list(TW.wf_stats.rounds)
     fallbacks5b = TW.wf_stats.fallbacks
@@ -1223,7 +1278,7 @@ def main() -> int:
         "warm_alignments_per_s": len(res5b) / warm5b_s, "launches": launches_wf,
         "segmented_span_launches": TS.span_launches.count,
         "dense_forward_launches": D.forward_launches.count,
-        "wf_span_shapes": sorted(wf_span_shapes.items()),
+        "wf_span_shapes": sorted(wf_span_shapes.items()), "wf_span_designs": wf_span_designs,
         "wf_traceback_shapes": sorted(wf_tb_shapes.items()),
         "scores": sorted(r.score for r in res5b),
     }
@@ -1233,9 +1288,9 @@ def main() -> int:
     prof5b = profile_pipeline(seqs5b, SCORES)
     if prof5b:
         by_k = prof5b["device_ms_by_kernel"]
-        for mode, tag, work in (("sweep", "wf_span_kernel<false>", TW.wf_stats.sweep_lane_levels),
-                                ("replay", "wf_span_kernel<true>", TW.wf_stats.replay_lane_levels)):
-            ms = sum(v for k, v in by_k.items() if k.startswith(tag))
+        for mode, hist, work in (("sweep", False, TW.wf_stats.sweep_lane_levels),
+                                 ("replay", True, TW.wf_stats.replay_lane_levels)):
+            ms = sum(v for k, v in by_k.items() if _wf_span_mode(k) is hist)
             prof5b[f"{mode}_lane_levels"] = work
             prof5b[f"{mode}_device_ms"] = ms
             prof5b[f"{mode}_lane_levels_per_s"] = work / (ms * 1e-3) if ms else None
@@ -1282,6 +1337,8 @@ def main() -> int:
     # segments kernel against plain (every slot, scores, done; and the
     # full sweep's first two slots), a narrow history span, and two
     # backward segments of the walk at each run_cap phase 14 used
+    from allwave_tpu_torch.probes import wf_level_split as WL
+
     C5 = TW.WfSegConfig().ckpt_every
     k_sub5 = -(-(2 * C5 + 320) // 512) * 512
     widest5 = {}
@@ -1289,19 +1346,14 @@ def main() -> int:
         B0, cap0 = widest5.get((K, l_pad), (0, 0))  # (batch, sweep score cap)
         widest5[(K, l_pad)] = (max(B, B0), cap0 if hist else max(ns, cap0))
     wf15, tb15 = [], []
-    order5 = np.argsort([len(pool5b[q]) + len(pool5b[t]) for q, t in zip(qi5b, ti5b)], kind="stable")
+
+    def batch5(B, l_pad, make=None):
+        return WL.batch(pool5b, qi5b, ti5b, B, l_pad, make, dev)
+
+
     for (K, l_pad), (B, s_cap) in sorted(widest5.items()):
         caps = sorted({sh[4] for sh in wf_tb_shapes if sh[1] == K})
-        rows = [int(order5[j % len(order5)]) for j in range(B)]
-        qs = torch.zeros((B, l_pad), dtype=torch.uint8)
-        ts = torch.zeros((B, l_pad), dtype=torch.uint8)
-        for b, j in enumerate(rows):
-            q, t = pool5b[qi5b[j]], pool5b[ti5b[j]]
-            qs[b, : len(q)] = torch.frombuffer(bytearray(q), dtype=torch.uint8)
-            ts[b, : len(t)] = torch.frombuffer(bytearray(t), dtype=torch.uint8)
-        ql = torch.tensor([len(pool5b[qi5b[j]]) for j in rows], dtype=torch.int32)
-        tl = torch.tensor([len(pool5b[ti5b[j]]) for j in rows], dtype=torch.int32)
-        batch = tuple(x.to(dev) for x in (qs, ts, ql, tl))
+        batch = batch5(B, l_pad)
         init = TW.wf_init(*batch, pen, K)
         at = f"5b B={B} K={K} l_pad={l_pad}"
         (ck_f, _, d_f, s_f), full_ms = timed_once(lambda: TW.wf_span(
@@ -1323,10 +1375,32 @@ def main() -> int:
     for r in wf15 + tb15:
         print("phase 15 wavefront shape: " + json.dumps(r), flush=True)
     report["wavefront_shapes"] = wf15 + tb15
+    # the sweep at 5b's widest round (B, K, l_pad, its score cap) on three
+    # inputs of its shape, each held to the plain version: the 5b pairs;
+    # tandem repeats ((AC)^n at the 5b lengths, the target with 0.25%
+    # SNPs: every other diagonal matches between SNPs, so every lane the
+    # wavefront reaches there extends hundreds of bases); and random
+    # pairs (every extension stops within its first 8 bases). The rings,
+    # the slots and the barrier are the same work in all three, so the
+    # differences in time a level are the extension's
+    (Kw, lw), (Bw, capw) = max(widest5.items(), key=lambda kv: (kv[1][0] * kv[0][0], kv[0][0]))
+    capw = min(capw, 8 * C5)  # the same levels for all three (the plain sweep is slow)
+    split15 = []
+    for name, make in WL.INPUTS:
+        batch = batch5(Bw, lw, make)
+        init = TW.wf_init(*batch, pen, Kw)
+        r, _ = wf_sweep_check(pen, batch, init, Kw, lw, C5, capw, 3, f"{name} B={Bw} K={Kw}")
+        r = {"input": name, **r, "us_per_level": 1e3 * r["ms"] / max(r["levels_run"], 1),
+             # clusters of this design the card holds at once
+             "clusters_held": TW.wf_span_design(Kw, Kw, False, Bw, pen).clusters_held}
+        print("phase 15 level split: " + json.dumps(r), flush=True)
+        split15.append(r)
+    report["wavefront_level_split"] = split15
     stamp(15)
-    # the kernel line's times: the widest round's two-segment sweep and
-    # its walk at the smallest run_cap
+    # the kernel line's times: the widest round's two-segment sweep, its
+    # narrow history span and its walk at the smallest run_cap
     wf_sweep = max((r for r in wf15 if r["mode"] == "sweep"), key=lambda r: (r["B"] * r["K"]))
+    wf_hist = max((r for r in wf15 if r["mode"] == "history"), key=lambda r: (r["B"] * r["K"]))
     wf_walk = max(tb15, key=lambda r: (r["B"] * r["K"], -r["run_cap"]))
 
     # -- phase 16: the probes of allwave_tpu_torch/probes (the six Pallas
@@ -1443,6 +1517,11 @@ def main() -> int:
     walk_bound = bnd(walk["runs"] * WALK_OPS, 2 * walk["runs"])
     wf_bound = bnd(wf_sweep["lane_levels"] * WF_LEVEL_OPS,
                    wf_sweep["ckpt_bytes"] + 2 * wf_sweep["B"] * wf_sweep["l_pad"])
+    # the history span: its ring slice in and its five planes out (20
+    # bytes a lane-level) make it bytes-bound; the bases its lanes compare
+    # are a window of the rows, not counted
+    wf_hist_bound = bnd(wf_hist["B"] * wf_hist["n_steps"] * wf_hist["W"] * WF_LEVEL_OPS,
+                        wf_hist["ring_bytes"] + wf_hist["plane_bytes"])
     wf_walk_bound = bnd(wf_walk["runs"] * WALK_OPS, 2 * wf_walk["runs"])
 
     kernels = [
@@ -1491,12 +1570,21 @@ def main() -> int:
             "ms": walk["ms"], "plain_ms": walk["plain_ms"], **walk_bound,
         },
         {
-            "name": "wf_span", "route": "cuda",
+            "name": "wf_span_sweep", "route": "cuda",
             "source": "allwave_tpu_torch/csrc/wf_span.cu",
-            "replaces": "allwave_tpu/wfa/pallas_wf.py:717 (_call_kernel)",
-            "launches": launches_wf["wf_span"],
-            "max_abs_err": max(r["max_abs_err"] for r in wf12 + wf15),
+            "replaces": "allwave_tpu/wfa/pallas_wf.py:717 (_call_kernel, with_history=False)",
+            "launches": launches_wf["wf_span_sweep"],
+            "max_abs_err": max(r["max_abs_err"] for r in wf12 + wf15 + split15
+                               if r["mode"] == "sweep"),
             "ms": wf_sweep["ms"], "plain_ms": wf_sweep["plain_ms"], **wf_bound,
+        },
+        {
+            "name": "wf_span_history", "route": "cuda",
+            "source": "allwave_tpu_torch/csrc/wf_span.cu",
+            "replaces": "allwave_tpu/wfa/pallas_wf.py:717 (_call_kernel, with_history=True)",
+            "launches": launches_wf["wf_span_history"],
+            "max_abs_err": max(r["max_abs_err"] for r in wf12 + wf15 if r["mode"] == "history"),
+            "ms": wf_hist["ms"], "plain_ms": wf_hist["plain_ms"], **wf_hist_bound,
         },
         {
             "name": "wf_traceback", "route": "cuda",

@@ -390,45 +390,81 @@ def test_long_route_launches_kernels_and_matches_cpu(cuda_device):
     np.testing.assert_array_equal(gpu[1], cpu[1])
 
 
-def _wf_inputs(device, scores_str, l_pad, K, seed, div=0.03):
-    """A wavefront edge-case batch on the card and its score-0 state."""
+def _wf_inputs(device, scores_str, l_pad, K, seed, div=0.03, n_rand=3):
+    """A wavefront edge-case batch on the card (n_rand mutated pairs, then
+    an identical, a tlen == l_pad, an infeasible and a short pair) and its
+    score-0 state."""
     from allwave_tpu_torch.testing.batches import wavefront_batch
     from allwave_tpu_torch.wfa import wf_segmented as TW
 
     pen = resolve_penalties(parse_scores(scores_str))
     batch = tuple(torch.from_numpy(a).to(device)
-                  for a in wavefront_batch(np.random.RandomState(seed), l_pad, K, div))
+                  for a in wavefront_batch(np.random.RandomState(seed), l_pad, K, div, n_rand))
     return pen, batch, TW.wf_init(*batch, pen, K)
 
 
+#: (scores, B, K, k_sub, G): the span's cluster design for the sweep at
+#: full band K (G = ceil(K / 256) blocks a pair, 1 lane a thread, where
+#: the card holds the batch's clusters at once), an odd band (a short
+#: last block), the three penalty sets, the engine's bands 2048 .. 6144
+#: with their history sub-band (and an odd one), and 5b's widest round
+#: (16 or 8 blocks a pair, and as many lanes a thread as let the most of
+#: its 36 clusters run at once)
+WF_SPAN_CASES = [("0,5,8,2,24,1", 7, 256, None, 1), ("0,5,8,2", 7, 256, None, 1),
+                 ("0,1,1,1", 7, 256, None, 1), ("0,5,8,2,24,1", 7, 512, None, 2),
+                 ("0,4,6,2", 7, 768, None, 3), ("0,5,8,2,24,1", 7, 1001, None, 4),
+                 ("0,1,1,1", 7, 1280, None, 5), ("0,5,8,2,24,1", 7, 1536, None, 6),
+                 ("0,5,8,2,24,1", 7, 2048, 512, 8), ("0,5,8,2,24,1", 7, 3072, 1023, 12),
+                 ("0,5,8,2", 7, 4096, 1024, 16), ("0,5,8,2,24,1", 7, 6144, 1024, 16),
+                 ("0,5,8,2,24,1", 36, 4096, 1024, 16)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("scores_str,K", [(s, 256) for s in SCORE_SETS] + [("0,5,8,2,24,1", 2048)])
-def test_wf_span_kernel_matches_plain(cuda_device, scores_str, K):
-    """The sweep's scores, done and every checkpoint slot; then history
-    spans from a kernel-made checkpoint at full band and on a sub-band
-    at per-pair c_lo (K = 2048 keeps the sweep's ring in the global
-    scratch)."""
+@pytest.mark.parametrize("scores_str,B,K,k_sub,G", WF_SPAN_CASES)
+def test_wf_span_kernel_matches_plain(cuda_device, scores_str, B, K, k_sub, G):
+    """The sweep runs the cluster kernel at the design's G (8 where the
+    card holds fewer than B of the widest clusters) and gives the plain
+    version's scores, done and every checkpoint slot; then history spans
+    from a kernel-made checkpoint at full band and on a sub-band at
+    per-pair c_lo give every plane entry; each launch records its
+    design."""
     from allwave_tpu_torch.wfa import wf_segmented as TW
 
-    l_pad, C, N = K + 256, 32, 256
-    pen, batch, init = _wf_inputs(cuda_device, scores_str, l_pad, K, K + len(scores_str))
+    l_pad, C, N = -(-(K + 256) // 32) * 32, 32, 256
+    pen, batch, init = _wf_inputs(cuda_device, scores_str, l_pad, K, K + len(scores_str),
+                                  n_rand=B - 4)
+    design = TW.wf_span_design(K, K, False, B, pen)
+    assert not design.history and -(-K // design.lanes_per_block) == design.blocks_per_pair
+    assert design.lanes_per_thread in (1, 2, 4) and design.lanes_per_block <= 512
+    if B < 16:
+        assert (design.blocks_per_pair, design.lanes_per_thread) == (G, 1)
+        assert design.clusters_held >= B
+    else:
+        assert design.blocks_per_pair in (8, 16)
     args = (*batch, pen, K, l_pad)
     kw = dict(ckpt_every=C, done=init.done0, scores=init.scores0)
-    n0 = TW.wf_span_launches.count
+    TW.wf_span_launches.reset()
     ck_k, _, d_k, s_k = TW.wf_span(*args, 0, N, init.seeds, False, **kw)
     ck_p, _, d_p, s_p = TW.wf_span_ref(*args, 0, N, init.seeds, False, **kw)
     torch.cuda.synchronize()
     assert torch.equal(s_k, s_p) and torch.equal(d_k, d_p) and torch.equal(ck_k, ck_p)
-    assert bool(d_k[3]) and not bool(d_k[5])
+    assert bool(d_k[B - 4]) and not bool(d_k[B - 2])
+    assert TW.wf_span_launches.designs == {(B, K, K, l_pad, N, False): design}
     seg = 2
-    c_lo = torch.tensor([0, 128, 0, 256, 384, 0, 512], dtype=torch.int32, device=cuda_device)
-    for narrow in (False, True):
-        sub = dict(c_lo=c_lo.clamp(max=K - 512), k_sub=512) if narrow and K > 512 else {}
+    c_lo = torch.tensor([(0, 128, 0, 256, 384, 0, 511)[b % 7] for b in range(B)],
+                        dtype=torch.int32, device=cuda_device)
+    for W in (K, k_sub):
+        if W is None:
+            continue
+        sub = dict(c_lo=c_lo.clamp(max=K - W), k_sub=W) if W < K else {}
         _, h_k, _, _ = TW.wf_span(*args, seg * C, C, ck_k[seg], True, **sub)
         _, h_p, _, _ = TW.wf_span_ref(*args, seg * C, C, ck_k[seg], True, **sub)
         torch.cuda.synchronize()
         assert torch.equal(h_k, h_p)
-    assert TW.wf_span_launches.count == n0 + 3
+        hd = TW.wf_span_design(K, W, True, B, pen)
+        assert hd.history and -(-W // hd.lanes_per_block) == hd.blocks_per_pair
+        assert TW.wf_span_launches.designs[(B, K, W, l_pad, C, True)] == hd
+    assert TW.wf_span_launches.count == 2 + (k_sub is not None)
 
 
 @pytest.mark.cuda
