@@ -10,6 +10,11 @@ op counts behind the bounds (kexp2 `ops_per_step`, kexp6 `STEP_OPS`,
 kexp8 `CHOICE_OPS`) are read against these histograms: whether ptxas
 merges two adds into one IADD3, moves adds to the FMA pipe as IMAD,
 or fuses an add and a min into one DPX VIADDMNMX.
+
+`hop_chain` reads a serial walk's dependent chain off its machine code:
+the least latency, in loads and ALU instructions, from one hop's tile
+load to the next (the walks' chain bounds, chip_smoke.py phases 1 and
+16).
 """
 
 from __future__ import annotations
@@ -80,10 +85,164 @@ def loops(insns, labels):
     return out
 
 
+_REG = re.compile(r"\b(U?R|U?P)(\d+)(\.64|\.128)?")
+#: opcodes that write no register (stores, branches, barriers, waits)
+_NO_DEST = ("ST", "RED", "BRA", "BRX", "JMP", "BSSY", "BSYNC", "BREAK", "EXIT", "RET", "CALL",
+            "NOP", "YIELD", "NANOSLEEP", "BAR", "MEMBAR", "FENCE", "WARPSYNC", "CCTL", "LDGSTS",
+            "LDGDEPBAR", "DEPBAR", "ERRBAR", "ENDCOLLECTIVE", "BPT", "KILL")
+#: opcodes that write two predicates, then read
+_TWO_PREDICATES = ("ISETP", "FSETP", "DSETP", "HSETP", "PSETP", "PLOP3", "UISETP", "UPLOP3")
+#: the weight of a load against an ALU instruction when two chains are
+#: compared (a shared-memory load takes ~5 times an add on an H100)
+LOAD_WEIGHT = 5
+
+
+def _regs(operand: str, width: int = 1):
+    """The registers an operand names (a `.64` pair or `.128` quad as
+    its parts; `width` widens a bare register)."""
+    out = []
+    for m in _REG.finditer(operand):
+        n = {".64": 2, ".128": 4}.get(m.group(3) or "", width)
+        out += [f"{m.group(1)}{int(m.group(2)) + k}" for k in range(n)]
+    return out
+
+
+def operands(text: str):
+    """(guard, opcode, dests, sources) of one instruction: the registers
+    (R, UR, P, UP; RZ and PT are none) it writes and reads, the guard
+    predicate among the sources."""
+    parts = text.split(None, 1)
+    guard = []
+    if parts and parts[0].startswith("@"):
+        guard = _regs(parts[0])
+        parts = parts[1].split(None, 1) if len(parts) > 1 else []
+    op = parts[0] if parts else ""
+    ops = [o.strip() for o in parts[1].split(",")] if len(parts) > 1 else []
+    if op.startswith(_NO_DEST) or not ops:
+        return guard, op, [], guard + [r for o in ops for r in _regs(o)]
+    pred = lambda o: re.fullmatch(r"U?P(\d+|T)", o) is not None
+    if op.startswith(_TWO_PREDICATES):
+        n_dest = 2
+    elif pred(ops[0]):
+        # LOP3 P, R; SHFL P, R: a predicate, then a register
+        n_dest = 2 if len(ops) > 1 and re.fullmatch(r"U?R(\d+|Z)", ops[1]) else 1
+    else:
+        # carry-outs follow the first operand (IADD3 R, P, P)
+        n_dest = 1
+        while n_dest < min(len(ops), 3) and pred(ops[n_dest]):
+            n_dest += 1
+    width = 4 if ".128" in op else 2 if ".64" in op or ".WIDE" in op else 1
+    dests = [r for o in ops[:n_dest] for r in _regs(o, width if o[0] in "RU" else 1)]
+    return guard, op, dests, guard + [r for o in ops[n_dest:] for r in _regs(o)]
+
+
+def _successors(insns, labels):
+    """{index: [indices]} of the instructions' control flow."""
+    at = {a: i for i, (a, _) in enumerate(insns)}
+    succ = {}
+    for i, (_, text) in enumerate(insns):
+        guard, op, _, srcs = operands(text)
+        nxt = [i + 1] if i + 1 < len(insns) else []
+        if op.startswith("BRA"):
+            m = _TARGET.search(text.split(op, 1)[1])
+            tgt = None if m is None else labels.get(m.group(1)) if m.group(1) else int(m.group(2), 16)
+            tgt = [at[tgt]] if tgt in at else []
+            succ[i] = tgt + (nxt if guard or srcs or op != "BRA" else [])
+        elif op.startswith(("EXIT", "RET", "BRX", "JMP", "BPT")):
+            succ[i] = nxt if guard else []
+        else:
+            succ[i] = nxt
+    return succ
+
+
+def _cycle(succ, i):
+    """The shortest path (fewest instructions) from instruction i back to
+    it, as indices after i up to and including i; None if there is none."""
+    prev, frontier = {}, list(succ[i])
+    for j in frontier:
+        prev.setdefault(j, i)
+    seen = set(frontier)
+    while frontier and i not in seen:
+        nxt = []
+        for j in frontier:
+            for k in succ[j]:
+                if k not in seen:
+                    seen.add(k)
+                    prev[k] = j
+                    nxt.append(k)
+        frontier = nxt
+    if i not in seen:
+        return None
+    path, j = [i], prev[i]
+    while j != i:
+        path.append(j)
+        j = prev[j]
+    return path[::-1]
+
+
+def _chain(insns, i, path):
+    """(loads, alu) from load i's issue to its next issue along `path`,
+    None if its next address does not depend on what it loaded. Each
+    instruction issues in order, once its sources are ready, and its
+    result is ready one shared-memory load (LDS) or one ALU latency
+    later (any other instruction: constant and device loads take at
+    least that); a predicated instruction may leave its destination as
+    it was."""
+    key = lambda d: LOAD_WEIGHT * d[0] + d[1]
+    _, op, dests, _ = operands(insns[i][1])
+    ready = {r: (1, 0) for r in dests}
+    tainted = set(dests)
+    issue = (0, 0)
+    for j in path:
+        guard, op, dests, srcs = operands(insns[j][1])
+        issue = max([issue] + [ready[r] for r in srcs if r in ready], key=key)
+        if j == i:
+            return issue if any(r in tainted for r in srcs) else None
+        done = (issue[0] + 1, issue[1]) if op.startswith("LDS") else (issue[0], issue[1] + 1)
+        hit = any(r in tainted for r in srcs)
+        for r in dests:
+            ready[r] = max(ready.get(r, (0, 0)), done, key=key) if guard else done
+            if hit:
+                tainted.add(r)
+            elif not guard:
+                tainted.discard(r)
+    return None
+
+
+def hop_chain(insns, labels):
+    """The least dependent chain of one hop of a serial walk, from its
+    machine code (`parse`): over every shared-memory load on a loop
+    without a spin wait (YIELD, NANOSLEEP) whose next address depends on
+    what it loaded, the chain along that loop's shortest way round,
+    from the load's issue to its next. {"loads", "alu", "at"} (the
+    load's address), or None where no load qualifies."""
+    succ = _successors(insns, labels)
+    best = None
+    for i, (addr, text) in enumerate(insns):
+        if not operands(text)[1].startswith("LDS"):
+            continue
+        path = _cycle(succ, i)
+        if path is None or any(opcode(insns[j][1]).startswith(("YIELD", "NANOSLEEP")) for j in path):
+            continue
+        c = _chain(insns, i, path)
+        if c is not None and (best is None or LOAD_WEIGHT * c[0] + c[1] < LOAD_WEIGHT * best[0] + best[1]):
+            best = (c[0], c[1], addr)
+    return None if best is None else {"loads": best[0], "alu": best[1], "at": best[2]}
+
+
 def cuobjdump() -> str:
     from ..wfa import cuda_build
 
     return os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
+
+
+def listing(name: str) -> str:
+    """The `cuobjdump -sass` listing of library csrc/<name>.cu."""
+    from ..wfa import cuda_build
+
+    cuda_build.library(name)
+    return subprocess.run([cuobjdump(), "-sass", cuda_build._library_path(name)],
+                          capture_output=True, text=True, check=True).stdout
 
 
 def report(names=None):
@@ -94,9 +253,7 @@ def report(names=None):
     rows = []
     cuda_build.build_all()
     for name in sorted(names or cuda_build.SIGNATURES):
-        sass = subprocess.run([cuobjdump(), "-sass", cuda_build._library_path(name)],
-                              capture_output=True, text=True, check=True).stdout
-        funcs, labels = parse(sass)
+        funcs, labels = parse(listing(name))
         for func, insns in funcs.items():
             for start, end, body in loops(insns, labels[func]):
                 rows.append({"source": name, "function": func, "start": start, "end": end,

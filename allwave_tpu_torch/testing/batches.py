@@ -100,3 +100,28 @@ def wavefront_batch(rng, l_pad: int, K: int, div: float = 0.03, n_rand: int = 3)
         ts[b, : t.size] = t
     lens = np.array([[q.size, t.size] for q, t in pairs], np.int32)
     return qs, ts, lens[:, 0].copy(), lens[:, 1].copy()
+
+
+def long_indel_batch(rng, B: int, L: int, l_pad: int, gap: int, div: float = 0.02):
+    """(qs, ts, qlens, tlens) numpy arrays of B pairs of length L with
+    ~div substitutions: pair b has a `gap`-base deletion from its target
+    (b % 3 == 0), a `gap`-base insertion into it (b % 3 == 1) or neither,
+    near the middle. A walk crosses the gap as one run of gap hops, its
+    band column drifting by `gap`. Needs l_pad >= L + gap."""
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    qs = np.zeros((B, l_pad), np.uint8)
+    ts = np.zeros((B, l_pad), np.uint8)
+    qlens = np.full(B, L, np.int32)
+    tlens = np.zeros(B, np.int32)
+    for b in range(B):
+        q = rng.choice(bases, L)
+        t = mutate(rng, q, div, 0)
+        at = L // 2 + 7 * b
+        if b % 3 == 0:
+            t = np.concatenate([t[:at], t[at + gap:]])
+        elif b % 3 == 1:
+            t = np.concatenate([t[:at], rng.choice(bases, gap), t[at:]])
+        qs[b, :L] = q
+        ts[b, : t.size] = t
+        tlens[b] = t.size
+    return qs, ts, qlens, tlens

@@ -2,9 +2,9 @@
 
 Each `csrc/*.cu` source of this package is compiled on first use by
 `nvcc` into a shared library with a plain C interface and loaded with
-ctypes. The library's file name carries a hash of its source and of the
-compile flags, so an edited source is rebuilt and an unchanged one is
-reused. Builds go to `allwave_tpu_torch/_build/` (git-ignored) and are
+ctypes. The library's file name carries a hash of its source, of the
+headers of csrc/ and of the compile flags, so an edited source is
+rebuilt and an unchanged one is reused. Builds go to `allwave_tpu_torch/_build/` (git-ignored) and are
 only ever made from the sources in this package.
 
 Every C entry point takes raw pointers and the CUDA stream as
@@ -74,9 +74,10 @@ SIGNATURES = {
     },
     "segment_traceback": {
         "allwave_segment_traceback": (
-            [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P],
+            [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P],
             _I,
         ),
+        "allwave_segment_traceback_design": ([_I, _I], _I),
     },
     "wf_span": {
         "allwave_wf_span": ([_P] * 5 + [_I] * 25 + [_P] * 8, _I),
@@ -84,9 +85,10 @@ SIGNATURES = {
     },
     "wf_traceback": {
         "allwave_wf_traceback": (
-            [_P, _I, _I, _I, _P, _I, _P] + [_I] * 17 + [_P] * 5 + [_I, _P],
+            [_P, _I, _I, _I, _P, _I, _P] + [_I] * 17 + [_P] * 5 + [_I, _P, _I, _P],
             _I,
         ),
+        "allwave_wf_traceback_design": ([_I, _I], _I),
     },
     # the probes of allwave_tpu_torch/probes (no production path)
     "probe_forward": {
@@ -101,6 +103,9 @@ SIGNATURES = {
     },
     "probe_ops": {
         "allwave_probe_ops": ([_P] * 2 + [_I] * 10 + [_P], _I),
+    },
+    "probe_latency": {
+        "allwave_probe_latency": ([_I, _I, _P, _P], _I),
     },
 }
 
@@ -123,11 +128,13 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> str:
-    src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(
-            f.read() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    # the source and every header of csrc/ it may include
+    for path in [os.path.join(CSRC, name + ".cu")] + sorted(
+            os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cuh")):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
 
 

@@ -37,6 +37,7 @@ re-queued because their run buffer overflowed.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import List, NamedTuple, Optional, Tuple
 
@@ -52,7 +53,8 @@ from .params import Penalties
 #: (k_sub = K on a full-band span), each with its `SpanDesign`
 span_launches = LaunchCount()
 #: segment-traceback kernel launches, shapes (B, K, l_pad, n_steps,
-#: run_cap) with K the width of the plane walked (k_sub on a narrow replay)
+#: run_cap) with K the width of the plane walked (k_sub on a narrow
+#: replay), each with its `WalkDesign`
 segment_traceback_launches = LaunchCount()
 
 
@@ -439,12 +441,155 @@ def traceback_segment_ref(planes, d_lo: int, walk, bufs, c_lo=None) -> None:
     nrun.copy_(nr)
 
 
-def segment_traceback(planes, d_lo: int, walk, bufs, l_pad: int, c_lo=None) -> None:
+class WalkDesign(NamedTuple):
+    """What a walk kernel (csrc/segment_traceback.cu, csrc/wf_traceback.cu)
+    runs: the fields of the code its C dispatch returns. One block a
+    pair: a walker and a producer warp a slot of a ring of tiles in
+    shared memory (and, for the wavefront walk, a warp that stages the
+    window's head)."""
+
+    code: int
+    rows: int  # R, plane rows (score levels) a tile, on a fixed grid
+    slots: int  # N, tiles in the ring: the walker's and N - 1 below it
+    cols: int  # Wc, window columns every row of a tile covers
+    warps: int
+
+
+def walk_design_of(code: int) -> WalkDesign:
+    """Decode a walk kernel's design code: bits 0-3 log2 R, 4-7 log2 N,
+    8-15 Wc, 16-19 warps."""
+    return WalkDesign(code, 1 << (code & 15), 1 << ((code >> 4) & 15), (code >> 8) & 255,
+                      (code >> 16) & 15)
+
+
+@functools.lru_cache(maxsize=None)
+def segment_walk_design(NS: int, W: int) -> WalkDesign:
+    """The segment walk's design for an (NS, B, W) plane, from its C
+    dispatch (once a shape)."""
+    from . import cuda_build
+
+    return walk_design_of(cuda_build.library("segment_traceback").allwave_segment_traceback_design(NS, W))
+
+
+def traceback_segment_tiles(planes, d_lo: int, walk, bufs, c_lo=None, stats=None, *,
+                            design: WalkDesign) -> None:
+    """Plain emulation of csrc/segment_traceback.cu's tile schedule, one
+    walker at a time: the same contract and bytes as
+    `traceback_segment_ref`, read the way the kernel reads. Tile t holds
+    plane rows t*R .. t*R + R - 1, each as the 64 entries of the
+    16-byte-aligned run that starts (row * B * W + b * W + lo) & 7
+    entries before column lo (zeros past the plane's end); it lives in
+    slot t % N. On entering tile t the walker asks for the tiles
+    t - N + 1 .. t not asked for yet, lo centred on its column and
+    clamped into the window; an entry of the walker's tile within
+    lo .. lo + Wc - 1 is read from the tile, any other from the full
+    plane (a miss). With stats ((2, B) int32) each walker's hops and
+    misses of this call are written there."""
+    NS, B, W = planes.shape
+    R, N, WC = design.rows, design.slots, design.cols
+    flat = planes.view(torch.int16).cpu().numpy().view(np.uint16).reshape(-1)
+    total = flat.size
+    ops, lens, nrun, overflow = bufs
+    run_cap = ops.shape[1]
+    w = walk.cpu().numpy().copy()
+    ops_h, lens_h = ops.cpu().numpy().copy(), lens.cpu().numpy().copy()
+    nr_h, ov_h = nrun.cpu().numpy().copy(), overflow.cpu().numpy().copy()
+    col0s = c_lo.cpu().numpy() if c_lo is not None else np.zeros(B, np.int64)
+    st = np.zeros((2, B), np.int32)
+
+    def stage(b, t, lo):
+        tile = np.zeros((R, 64), np.uint16)
+        for rr in range(min(R, NS - t * R)):
+            at = (((t * R + rr) * B + b) * W + lo) & ~7
+            run = flat[at:min(at + 64, total)]
+            tile[rr, : run.size] = run
+        return tile
+
+    for b in range(B):
+        d, c, comp, act, cur_op, cur_len = (int(v) for v in w[:, b])
+        active = act != 0
+        nr, ovf, col0 = int(nr_h[b]), bool(ov_h[b]), int(col0s[b])
+        if not (active and d > d_lo):
+            continue
+        req_lo, have_t, hops, misses = 1 << 31, -1, 0, 0
+        slot_lo, tiles = [0] * N, [None] * N
+        for _ in range((2 * NS + 8) // D.CHUNK + 2):
+            if not (active and d > d_lo):
+                break
+            oob = False
+            for _ in range(D.CHUNK):
+                if not (active and d > d_lo):
+                    break
+                hops += 1
+                r, cc, v = d - d_lo - 1, c - col0, 0
+                if 0 <= r < NS and 0 <= cc < W:
+                    t = r // R
+                    if t != have_t:
+                        new_lo = max(t - N + 1, 0)
+                        if new_lo < req_lo:
+                            lo = min(max(cc - WC // 2, 0), max(W - WC, 0))
+                            for u in range(min(req_lo - 1, t), new_lo - 1, -1):
+                                slot_lo[u % N] = lo
+                                tiles[u % N] = (u, stage(b, u, lo))
+                            req_lo = new_lo
+                        have_t = t
+                    lo = slot_lo[t % N]
+                    if 0 <= cc - lo < WC:
+                        held, tile = tiles[t % N]
+                        assert held == t
+                        v = int(tile[r % R, cc - lo + (((r * B + b) * W + lo) & 7)])
+                    else:
+                        v = int(flat[(r * B + b) * W + cc])
+                        misses += 1
+                byte, run = v & 0xFF, v >> 8
+                src = byte & 7
+                is_s = comp == 0
+                is_match_run, is_x = is_s and src == D.S_DIAG_MATCH, is_s and src == D.S_DIAG_MISMATCH
+                run_i = max(run, 1)
+                is_i, is_d = comp in (1, 3), comp in (2, 4)
+                if is_match_run or is_x or is_i or is_d:
+                    op = D._OP_M if is_match_run else D._OP_X if is_x else D._OP_I if is_i else D._OP_D
+                    n = run_i if is_match_run else 1
+                    same = cur_len > 0 and cur_op == op and cur_len + n <= 255
+                    if cur_len > 0 and not same:
+                        if nr < run_cap:
+                            ops_h[b, nr], lens_h[b, nr] = cur_op, cur_len
+                        else:
+                            oob = True
+                        nr += 1
+                    cur_len = cur_len + n if same else n
+                    cur_op = op
+                if is_s:
+                    d = d - 2 * run_i if is_match_run else d - 2 if is_x else d
+                    comp = 0 if is_match_run or is_x else {2: 1, 4: 2, 3: 3}.get(src, 4)
+                else:
+                    ext = (byte >> (comp + 2)) & 1
+                    d, c = d - 1, c - 1 if is_i else c + 1
+                    comp = comp if ext else 0
+                if d <= 0:
+                    active = False
+            if oob:
+                ovf, active = True, False
+        w[:, b] = (d, c, comp, int(active), cur_op, cur_len)
+        nr_h[b], ov_h[b] = nr, ovf
+        st[:, b] = (hops, misses)
+    walk.copy_(torch.from_numpy(w))
+    for t, h in zip(bufs, (ops_h, lens_h, nr_h, ov_h)):
+        t.copy_(torch.from_numpy(h))
+    if stats is not None:
+        stats.copy_(torch.from_numpy(st))
+
+
+def segment_traceback(planes, d_lo: int, walk, bufs, l_pad: int, c_lo=None, stats=None) -> None:
     """The resumable walk over one segment: the plain version for CPU
     tensors, the csrc/segment_traceback.cu kernel for CUDA tensors (same
-    contract as `traceback_segment_ref`; updates walk and bufs in
-    place). l_pad is recorded with the launch."""
+    contract as `traceback_segment_ref`; updates walk and bufs in place).
+    With stats ((2, B) int32, CUDA only), the kernel writes each walker's
+    hops and misses (entries read from device memory, not from a tile)
+    of this call there. l_pad is recorded with the launch."""
     if D._device_kind(planes) == "cpu":
+        if stats is not None:
+            raise ValueError("stats: hops and misses are the kernel's; the plain walk has none")
         traceback_segment_ref(planes, d_lo, walk, bufs, c_lo)
         return
     from . import cuda_build
@@ -460,18 +605,23 @@ def segment_traceback(planes, d_lo: int, walk, bufs, l_pad: int, c_lo=None) -> N
     D._check_cuda("overflow", overflow, torch.bool, (B,))
     if c_lo is not None:
         D._check_cuda("c_lo", c_lo, _I32, (B,))
+    if stats is not None:
+        D._check_cuda("stats", stats, _I32, (2, B))
     if run_cap < 1 or d_lo < 0:
         raise ValueError(f"bad run_cap {run_cap} or d_lo {d_lo}")
+    if planes.data_ptr() % 16:
+        raise ValueError("planes: the walk's tiles copy 16-byte runs: expected a 16-byte-aligned tensor")
+    design = segment_walk_design(NS, W)
     lib = cuda_build.library("segment_traceback")
     rc = lib.allwave_segment_traceback(
         planes.data_ptr(), NS, B, W, d_lo,
         None if c_lo is None else c_lo.data_ptr(),
         walk.data_ptr(), ops.data_ptr(), lens.data_ptr(), nrun.data_ptr(),
-        overflow.data_ptr(), run_cap,
-        torch.cuda.current_stream(planes.device).cuda_stream,
+        overflow.data_ptr(), run_cap, None if stats is None else stats.data_ptr(),
+        design.code, torch.cuda.current_stream(planes.device).cuda_stream,
     )
     cuda_build.check(rc, "segment_traceback kernel launch")
-    segment_traceback_launches.launched((B, W, l_pad, NS, run_cap))
+    segment_traceback_launches.launched((B, W, l_pad, NS, run_cap), design)
 
 
 def expand_runs_to_cigar(ops_row: np.ndarray, lens_row: np.ndarray, n: int) -> np.ndarray:

@@ -39,6 +39,7 @@ each shape's design) and `wf_traceback_launches`.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
@@ -61,6 +62,7 @@ from .batch import (
 )
 from .dense import LaunchCount
 from .params import Penalties
+from .segmented import WalkDesign, walk_design_of
 
 _C_M, _C_I1, _C_D1, _C_I2, _C_D2 = 0, 1, 2, 3, 4
 _COMPS = ("m", "i1", "d1", "i2", "d2")
@@ -70,7 +72,8 @@ _I32 = torch.int32
 #: (W = K on a full-band span; a sweep's n_steps is its score cap), and
 #: the design of each shape
 wf_span_launches = LaunchCount()
-#: window-traceback kernel launches, shapes (B, K, W, n_steps, run_cap)
+#: window-traceback kernel launches, shapes (B, K, W, n_steps, run_cap),
+#: each with its `WalkDesign`
 wf_traceback_launches = LaunchCount()
 
 
@@ -641,12 +644,182 @@ def traceback_window_ref(hist, ring, s_lo: int, walk, bufs, pen: Penalties, c_lo
     nrun.copy_(nr)
 
 
-def wf_traceback(hist, ring, s_lo: int, walk, bufs, pen: Penalties, c_lo=None) -> None:
+@functools.lru_cache(maxsize=None)
+def wf_walk_design(NS: int, W: int) -> WalkDesign:
+    """The window walk's design for (NS, 5, B, W) history planes, from
+    its C dispatch (once a shape)."""
+    from . import cuda_build
+
+    return walk_design_of(cuda_build.library("wf_traceback").allwave_wf_traceback_design(NS, W))
+
+
+def head_rows(pen: Penalties) -> int:
+    """The rows of the window's head a stepping walker can read, the ones
+    the walk kernel stages: max(x, e1, e2), at most D. A stepping walker
+    has s > s_lo (or s == 0) and reads at s, s - x and s - e."""
+    return min(pen.max_lookback + 1, max(pen.x, pen.e1, pen.e2))
+
+
+def traceback_window_tiles(hist, ring, s_lo: int, walk, bufs, pen: Penalties, c_lo=None,
+                           stats=None, *, design: WalkDesign) -> None:
+    """Plain emulation of csrc/wf_traceback.cu's tile schedule, one walker
+    at a time: the same contract and bytes as `traceback_window_ref`,
+    read the way the kernel reads. Tile t holds history levels t*R ..
+    t*R + R - 1 (scores s_lo + 1 + t*R ..) of the 5 components at window
+    columns lo .. lo + Wc - 1; it lives in slot t % N. On entering tile t
+    (the tile of its score's level) the walker asks for the tiles
+    t - N + 1 .. t not asked for yet, lo centred on its column and
+    clamped into the window. The head rows a walker can read (scores
+    s_lo - head_rows + 1 .. s_lo) are staged at the start, centred on
+    the entry column, NULL where a slot is older than its component's
+    depth or below score 0, each component's slot stepped down from
+    s_lo % depth by one subtraction and wrap. A read of a staged entry
+    comes from its tile or the head, any other from the full planes or
+    the ring (a miss). With stats ((2, B) int32) each walker's hops and
+    misses of this call are written there."""
+    NS, _, B, W = hist.shape
+    K = ring.shape[2]
+    R, N, WC = design.rows, design.slots, design.cols
+    Dw, DH = pen.max_lookback + 1, head_rows(pen)
+    offs, deps, _ = ring_layout(pen)
+    m0 = [s_lo % dp for dp in deps]
+    h_np, r_np = hist.cpu().numpy(), ring.cpu().numpy()
+    ops, lens, nrun, overflow = bufs
+    run_cap = ops.shape[1]
+    w = walk.cpu().numpy().copy()
+    ops_h, lens_h = ops.cpu().numpy().copy(), lens.cpu().numpy().copy()
+    nr_h, ov_h = nrun.cpu().numpy().copy(), overflow.cpu().numpy().copy()
+    col0s = c_lo.cpu().numpy() if c_lo is not None else np.zeros(B, np.int64)
+    st = np.zeros((2, B), np.int32)
+    e_of = {1: pen.e1, 2: pen.e1, 3: pen.e2, 4: pen.e2}
+    oe_of = {1: pen.o1 + pen.e1, 2: pen.o1 + pen.e1, 3: pen.o2 + pen.e2, 4: pen.o2 + pen.e2}
+
+    for b in range(B):
+        s, c, h, comp, act = (int(v) for v in w[:, b])
+        active = act != 0
+        nr, ovf, col0 = int(nr_h[b]), bool(ov_h[b]), int(col0s[b])
+        if not (active and (s > s_lo or s == 0)):
+            continue
+        hops = misses = 0
+        # the head, staged at the start around the entry column
+        head_lo = min(max(c - col0 - WC // 2, 0), max(W - WC, 0))
+        head = np.zeros((DH, 5, WC), np.int64)
+        slot = list(m0)
+        for k in range(DH):
+            for cp in range(5):
+                for x in range(WC):
+                    fc = head_lo + x
+                    if fc < W:
+                        ok = s_lo - k >= 0 and k < deps[cp]
+                        head[DH - 1 - k, cp, x] = r_np[offs[cp] + slot[cp], b, col0 + fc] if ok else NULL
+                slot[cp] = deps[cp] - 1 if slot[cp] == 0 else slot[cp] - 1
+        req_lo, cur_t, slot_lo, tiles = 1 << 31, -1, [0] * N, [None] * N
+
+        def win(cp, fs, fc):
+            nonlocal misses
+            i = fs - s_lo - 1
+            if i >= NS or i < -Dw or fs < 0 or fc < 0 or fc >= W:
+                return NULL
+            if i >= 0:
+                t = i // R
+                if t >= req_lo and 0 <= fc - slot_lo[t % N] < WC:
+                    held, tile = tiles[t % N]
+                    assert held == t
+                    return int(tile[i % R, cp, fc - slot_lo[t % N]])
+                misses += 1
+                return int(h_np[i, cp, b, fc])
+            k = -1 - i
+            if k >= deps[cp]:
+                return NULL
+            if k < DH and 0 <= fc - head_lo < WC:
+                return int(head[DH - 1 - k, cp, fc - head_lo])
+            misses += 1
+            return int(r_np[offs[cp] + (m0[cp] - k) % deps[cp], b, col0 + fc])
+
+        def emit(op, cnt):
+            nonlocal nr, oob
+            if nr < run_cap:
+                ops_h[b, nr], lens_h[b, nr] = op, cnt
+            else:
+                oob = True
+            nr += 1
+
+        for _ in range((3 * run_cap + 8) // CHUNK + 2):
+            if not (active and (s > s_lo or s == 0)):
+                break
+            oob = False
+            for _ in range(CHUNK):
+                if not (active and (s > s_lo or s == 0)):
+                    break
+                hops += 1
+                cc = c - col0
+                if s > s_lo and (s - s_lo - 1) // R != cur_t:
+                    cur_t = (s - s_lo - 1) // R
+                    new_lo = max(cur_t - N + 1, 0)
+                    if new_lo < req_lo:
+                        lo = min(max(cc - WC // 2, 0), max(W - WC, 0))
+                        for u in range(min(req_lo - 1, cur_t), new_lo - 1, -1):
+                            slot_lo[u % N] = lo
+                            lev = slice(u * R, min(u * R + R, NS))
+                            tile = np.zeros((R, 5, WC), np.int64)
+                            n = min(WC, W - lo)
+                            tile[: lev.stop - lev.start, :, :n] = h_np[lev, :, b, lo : lo + n]
+                            tiles[u % N] = (u, tile)
+                        req_lo = new_lo
+                if comp == _C_M:
+                    mis_v = win(0, s - pen.x, cc)
+                    cx = mis_v + 1 if mis_v > NULL else NULL
+                    ci1, cd1, ci2, cd2 = (win(cp, s, cc) for cp in (1, 2, 3, 4))
+                    pre = max(cx, ci1, cd1, ci2, cd2)
+                    choice = (_C_M if cx == pre else _C_I1 if ci1 == pre else _C_I2 if ci2 == pre
+                              else _C_D1 if cd1 == pre else _C_D2)
+                    at_origin = s == 0
+                    n_match = h if at_origin else h - pre
+                    if n_match > 0:
+                        emit(_OP_M, n_match)
+                    if at_origin:
+                        active = False
+                    else:
+                        if choice == _C_M:
+                            emit(_OP_X, 1)
+                            s -= pen.x
+                            h = pre - 1
+                        else:
+                            h = pre
+                        comp = choice
+                else:
+                    is_i = comp in (_C_I1, _C_I2)
+                    ev = win(comp, s - e_of[comp], cc - 1 if is_i else cc + 1)
+                    ext_ok = ev > NULL and (ev + 1 == h if is_i else ev == h)
+                    emit(_OP_I if is_i else _OP_D, 1)
+                    s -= e_of[comp] if ext_ok else oe_of[comp]
+                    if not ext_ok:
+                        comp = _C_M
+                    c = c - 1 if is_i else c + 1
+                    if is_i:
+                        h -= 1
+            if oob:
+                ovf, active = True, False
+        w[:, b] = (s, c, h, comp, int(active))
+        nr_h[b], ov_h[b] = nr, ovf
+        st[:, b] = (hops, misses)
+    walk.copy_(torch.from_numpy(w))
+    for t, arr in zip(bufs, (ops_h, lens_h, nr_h, ov_h)):
+        t.copy_(torch.from_numpy(arr))
+    if stats is not None:
+        stats.copy_(torch.from_numpy(st))
+
+
+def wf_traceback(hist, ring, s_lo: int, walk, bufs, pen: Penalties, c_lo=None, stats=None) -> None:
     """The walk over one replayed segment: the plain version for CPU
     tensors, the csrc/wf_traceback.cu kernel for CUDA tensors (same
-    contract as `traceback_window_ref`; updates walk and bufs in
-    place)."""
+    contract as `traceback_window_ref`; updates walk and bufs in place).
+    With stats ((2, B) int32, CUDA only), the kernel writes each
+    walker's hops and misses (entries read from device memory, not from
+    a tile or the staged head) of this call there."""
     if D_._device_kind(hist) == "cpu":
+        if stats is not None:
+            raise ValueError("stats: hops and misses are the kernel's; the plain walk has none")
         traceback_window_ref(hist, ring, s_lo, walk, bufs, pen, c_lo)
         return
     from . import cuda_build
@@ -665,19 +838,22 @@ def wf_traceback(hist, ring, s_lo: int, walk, bufs, pen: Penalties, c_lo=None) -
     D_._check_cuda("overflow", overflow, torch.bool, (B,))
     if c_lo is not None:
         D_._check_cuda("c_lo", c_lo, _I32, (B,))
+    if stats is not None:
+        D_._check_cuda("stats", stats, _I32, (2, B))
     if run_cap < 1 or s_lo < 0 or W > K:
         raise ValueError(f"bad walk: run_cap={run_cap} s_lo={s_lo} W={W} K={K}")
+    design = wf_walk_design(NS, W)
     lib = cuda_build.library("wf_traceback")
     rc = lib.allwave_wf_traceback(
         hist.data_ptr(), NS, B, W, ring.data_ptr(), K,
         _ptr(c_lo), s_lo,
         pen.x, pen.o1, pen.e1, pen.o2, pen.e2, *offs, *deps, pen.max_lookback + 1,
         walk.data_ptr(), ops.data_ptr(), lens.data_ptr(), nrun.data_ptr(),
-        overflow.data_ptr(), run_cap,
+        overflow.data_ptr(), run_cap, _ptr(stats), design.code,
         torch.cuda.current_stream(hist.device).cuda_stream,
     )
     cuda_build.check(rc, "wf_traceback kernel launch")
-    wf_traceback_launches.launched((B, K, W, NS, run_cap))
+    wf_traceback_launches.launched((B, K, W, NS, run_cap), design)
 
 
 # ---------------------------------------------------------------------------

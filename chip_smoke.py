@@ -121,6 +121,43 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def time_calls_ms(call, entries) -> float:
+    """Mean milliseconds of call(*entry) on the card (CUDA events) over
+    entries[1:], after a warm-up call on entries[0]; the entries (fresh
+    copies of an in-place kernel's inputs) are all made before the
+    events, and the card sleeps first long enough for the host to queue
+    every launch, so a kernel shorter than its wrapper's host time is
+    timed back to back, not at the host's pace."""
+    import torch
+
+    call(*entries[0])
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)  # ~25 ms
+    start.record()
+    for e in entries[1:]:
+        call(*e)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (len(entries) - 1)
+
+
+def walk_row(stats_k, stats_e, ms, design) -> dict:
+    """A walk's hops and misses, from the kernel's stats held equal to
+    its tile schedule's emulation, with its microseconds a hop (over the
+    longest walker: the walk's chain) and its tile design."""
+    import torch
+
+    check(torch.equal(stats_k.cpu(), stats_e), "the walk's hops or misses differ from its "
+          f"tile schedule's emulation: {stats_k.tolist()} vs {stats_e.tolist()}")
+    hops = stats_e[0]
+    return {"hops_max": int(hops.max()), "hops_sum": int(hops.sum()),
+            "misses": int(stats_e[1].sum()), "us_per_hop": 1e3 * ms / max(int(hops.max()), 1),
+            "tile_rows": design.rows, "tile_slots": design.slots, "tile_cols": design.cols,
+            "warps": design.warps}
+
+
 def timed_once(fn):
     """(fn(), milliseconds of that one call on the card)."""
     import torch
@@ -281,7 +318,9 @@ def span_case(device, B, L, l_pad, K, k_sub, C, seg, seed, div, reps, run_caps=(
     and without, at the full band (k_sub None) or on the narrow replay's
     sub-band around the main diagonal. Walkers enter at the segment's
     top on the main diagonal and walk it at each run_cap (a tiny cap
-    overflows). Returns (span results, traceback results)."""
+    overflows): walk state and run buffers equal to the plain walk's,
+    hops and misses to the tile schedule's emulation; the kernel is
+    timed alone. Returns (span results, traceback results)."""
     import numpy as np
     import torch
 
@@ -339,7 +378,8 @@ def span_case(device, B, L, l_pad, K, k_sub, C, seg, seed, div, reps, run_caps=(
             return walk0.clone(), tuple(b.clone() for b in bufs0)
 
         walk_k, bufs_k = fresh()
-        TS.segment_traceback(planes_k, d_lo, walk_k, bufs_k, l_pad, c_lo=c_lo)
+        stats_k = torch.zeros((2, B), dtype=torch.int32, device=device)
+        TS.segment_traceback(planes_k, d_lo, walk_k, bufs_k, l_pad, c_lo=c_lo, stats=stats_k)
         walk_p, bufs_p = fresh()
         _, plain_ms = timed_once(
             lambda: TS.traceback_segment_ref(planes_k, d_lo, walk_p, bufs_p, c_lo=c_lo)
@@ -350,13 +390,24 @@ def span_case(device, B, L, l_pad, K, k_sub, C, seg, seed, div, reps, run_caps=(
         err = max(int((walk_k - walk_p).abs().max()),
                   *(int((a.to(torch.int32) - b.to(torch.int32)).abs().max())
                     for a, b in zip(bufs_k, bufs_p)))
-        # each timed call walks fresh copies of the entry state (the
-        # copies are a few small kernels of their own)
-        ms = time_ms(lambda: TS.segment_traceback(planes_k, d_lo, *fresh(), l_pad, c_lo=c_lo), reps)
+        # the tile schedule's emulation on the CPU: the kernel's hops and
+        # misses must be its
+        design = TS.segment_walk_design(C, W)
+        walk_e, bufs_e = walk0.cpu(), tuple(b.cpu() for b in bufs0)
+        stats_e = torch.zeros((2, B), dtype=torch.int32)
+        TS.traceback_segment_tiles(planes_k.cpu(), d_lo, walk_e, bufs_e,
+                                   c_lo=None if c_lo is None else c_lo.cpu(), stats=stats_e,
+                                   design=design)
+        check(torch.equal(walk_e, walk_p.cpu()), f"the emulated walk differs at {at} run_cap={cap}")
+        # the kernel alone: every timed call walks its own fresh copy of
+        # the entry state, made before the events
+        ms = time_calls_ms(lambda w, b: TS.segment_traceback(planes_k, d_lo, w, b, l_pad, c_lo=c_lo),
+                           [fresh() for _ in range(reps + 1)])
         tbs.append({
             "B": B, "l_pad": l_pad, "K": K, "k_sub": W, "n_steps": C, "run_cap": cap,
             "runs": int(bufs_k[2].sum()), "overflowed": int(bufs_k[3].sum()),
             "max_abs_err": err, "tolerance": 0, "ms": ms, "plain_ms": plain_ms,
+            **walk_row(stats_k, stats_e, ms, design),
         })
     return spans, tbs
 
@@ -494,8 +545,10 @@ def wf_walk_chain(device, pen, batch, init, ck, done, scores, K, l_pad, C, k_sub
     start at each done pair's end cell and walk back segment by segment
     (n_seg segments from the top, or all) over history planes the span
     kernel replays, narrow when K > k_sub; walk state and the four run
-    buffers must be equal after every segment, at each run_cap. The
-    last segment's walk is timed. Returns one result dict per run_cap."""
+    buffers must be equal after every segment, at each run_cap, and each
+    segment's hops and misses equal to the tile schedule's emulation. The
+    last segment's walk is timed alone. Returns one result dict per
+    run_cap."""
     import torch
 
     from allwave_tpu_torch.wfa import segmented as TS
@@ -509,32 +562,52 @@ def wf_walk_chain(device, pen, batch, init, ck, done, scores, K, l_pad, C, k_sub
     out = []
     for cap in run_caps:
         walk_k = TW.new_walk(torch.where(done, scores, -1), init.c_end, tl, done & (ql + tl > 0))
-        walk_p = walk_k.clone()
+        walk_p, walk_e = walk_k.clone(), walk_k.cpu()
         bufs_k, bufs_p = TW.new_bufs(B, cap, device), TW.new_bufs(B, cap, device)
+        bufs_e = TW.new_bufs(B, cap, "cpu")
         at = f"B={B} K={K} l_pad={l_pad} run_cap={cap}"
+        hops = misses = 0
         for seg in segs:
             c_lo = TS.narrow_offsets(walk_k[1], K, k_sub) if narrow else None
             _, hist, _, _ = TW.wf_span(*batch, pen, K, l_pad, seg * C, C, ck[seg], True,
                                        c_lo=c_lo, k_sub=k_sub if narrow else None)
             entry = (walk_k.clone(), tuple(b.clone() for b in bufs_k))
-            TW.wf_traceback(hist, ck[seg], seg * C, walk_k, bufs_k, pen, c_lo=c_lo)
+            stats_k = torch.zeros((2, B), dtype=torch.int32, device=device)
+            TW.wf_traceback(hist, ck[seg], seg * C, walk_k, bufs_k, pen, c_lo=c_lo, stats=stats_k)
             _, plain_ms = timed_once(
                 lambda: TW.traceback_window_ref(hist, ck[seg], seg * C, walk_p, bufs_p, pen, c_lo=c_lo))
             check(torch.equal(walk_k, walk_p), f"walk states differ at {at} segment {seg}")
             for a, b in zip(bufs_k, bufs_p):
                 check(torch.equal(a, b), f"run buffers differ at {at} segment {seg}")
+            # the tile schedule's emulation on the CPU: the kernel's hops
+            # and misses must be its
+            design = TW.wf_walk_design(C, hist.shape[3])
+            stats_e = torch.zeros((2, B), dtype=torch.int32)
+            TW.traceback_window_tiles(hist.cpu(), ck[seg].cpu(), seg * C, walk_e, bufs_e, pen,
+                                      c_lo=None if c_lo is None else c_lo.cpu(), stats=stats_e,
+                                      design=design)
+            check(torch.equal(walk_e, walk_p.cpu()), f"the emulated walk differs at {at} segment {seg}")
+            row = walk_row(stats_k, stats_e, 0.0, design)
+            hops += row["hops_sum"]
+            misses += row["misses"]
         err = max(int((walk_k - walk_p).abs().max()),
                   *(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
                     for a, b in zip(bufs_k, bufs_p)))
-        # each timed call walks fresh copies of the last segment's entry state
-        ms = time_ms(lambda: TW.wf_traceback(
-            hist, ck[seg], seg * C, entry[0].clone(), tuple(b.clone() for b in entry[1]),
-            pen, c_lo=c_lo), reps)
+        # the kernel alone on the last segment: every timed call walks its
+        # own fresh copy of that segment's entry state, made before the
+        # events
+        ms = time_calls_ms(
+            lambda w, b: TW.wf_traceback(hist, ck[seg], seg * C, w, b, pen, c_lo=c_lo),
+            [(entry[0].clone(), tuple(b.clone() for b in entry[1])) for _ in range(reps + 1)])
         out.append({
             "B": B, "K": K, "W": k_sub if narrow else K, "l_pad": l_pad, "n_steps": C,
             "run_cap": cap, "segments": len(segs), "runs": int(bufs_k[2].sum()),
             "overflowed": int(bufs_k[3].sum()), "max_abs_err": err, "tolerance": 0,
             "ms": ms, "plain_ms": plain_ms,
+            # the last segment's hops, misses and us a hop (the timed walk),
+            # and those of all segments
+            **walk_row(stats_k, stats_e, ms, design), "chain_hops_sum": hops,
+            "chain_misses": misses,
         })
     return out
 
@@ -790,6 +863,31 @@ def main() -> int:
           and any(op.startswith("VOTE") for r in wf_loops for op in r["ops"]),
           "the wavefront span's loops divide, or keep their rings out of shared memory, "
           "or extend without warp votes")
+    hop_chains = {}
+    # the two walks: registers and spills, and their loops (the walker's
+    # hops read tiles from shared memory: LDS; the producers copy them
+    # with cp.async: LDGSTS) divide nowhere
+    for name in ("segment_traceback", "wf_traceback"):
+        for fn, u in sorted(cuda_build.ptxas_usage(name).items()):
+            print("phase 1 ptxas: " + json.dumps({"kernel": _short(fn), **u}), flush=True)
+        walk_loops = [r for r in SA.report([name]) if "_traceback_kernel" in r["function"]]
+        for r in walk_loops:
+            print(f"phase 1 {name} loop: " + json.dumps(r), flush=True)
+        check(walk_loops and not any(op.startswith("MUFU.RCP") for r in walk_loops for op in r["ops"])
+              and any("LDS" in r["ops"] for r in walk_loops)
+              and any(op.startswith("LDGSTS") for r in walk_loops for op in r["ops"]),
+              f"the {name} loops divide, or read no tile from shared memory, or copy none "
+              "with cp.async")
+        # the walker's least dependent chain a hop, read off this build's
+        # machine code: phase 16's chain bound
+        funcs, labels = SA.parse(SA.listing(name))
+        kernel = [f for f in funcs if "_traceback_kernel" in f]
+        chain = SA.hop_chain(funcs[kernel[0]], labels[kernel[0]]) if len(kernel) == 1 else None
+        check(chain is not None, f"no hop of the {name} walker has a dependent chain through a "
+              "shared-memory load in its machine code")
+        print(f"phase 1 {name} hop chain: " + json.dumps(chain), flush=True)
+        hop_chains[name] = chain
+    report["walk_hop_chains"] = hop_chains
     stamp(1)
 
     # -- phase 2: forward kernel against its plain version ---------------
@@ -1107,6 +1205,8 @@ def main() -> int:
             prof100[f"{mode}_cells"] = cells
             prof100[f"{mode}_device_ms"] = ms
             prof100[f"{mode}_gcells_s"] = cells / (ms * 1e6) if ms else None
+        prof100["walk_device_ms"] = sum(v for k, v in by_k.items()
+                                        if k.startswith("segment_traceback_kernel"))
     print("phase 9 profile: " + (json.dumps(prof100) if prof100 else
           "device time not measured (the profiler saw no kernels)"), flush=True)
     report["long_path_profile"] = prof100
@@ -1523,6 +1623,24 @@ def main() -> int:
     wf_hist_bound = bnd(wf_hist["B"] * wf_hist["n_steps"] * wf_hist["W"] * WF_LEVEL_OPS,
                         wf_hist["ring_bytes"] + wf_hist["plane_bytes"])
     wf_walk_bound = bnd(wf_walk["runs"] * WALK_OPS, 2 * wf_walk["runs"])
+    # a bound a serial walk can be held to: its longest walker's hops, one
+    # after another, each at least the hop's dependent chain (phase 1:
+    # shared-memory loads and ALU instructions from one hop's tile load
+    # to the next, read off this build's machine code by
+    # `probes.sass.hop_chain`), at the latencies one thread's dependent
+    # chains of each take on this card (csrc/probe_latency.cu)
+    from allwave_tpu_torch.probes.latency import walk_latency_ns
+
+    lat16 = walk_latency_ns(dev)
+    print("phase 16 walk latency: " + json.dumps(lat16), flush=True)
+    report["walk_latency_ns"] = lat16
+
+    def chain_bound(r, chain):
+        hop_ns = chain["loads"] * lat16["lds_ns"] + chain["alu"] * lat16["alu_ns"]
+        return {"chain_bound_ms": r["hops_max"] * hop_ns * 1e-6}
+
+    walk_bound.update(chain_bound(walk, hop_chains["segment_traceback"]))
+    wf_walk_bound.update(chain_bound(wf_walk, hop_chains["wf_traceback"]))
 
     kernels = [
         {

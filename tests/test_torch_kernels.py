@@ -332,32 +332,70 @@ def test_sweep_kernel_edge_pairs_match_cpu(cuda_device, scores_str, K, l_pad):
         assert torch.equal(a.cpu(), b)
 
 
+#: (run_cap, k_sub, pairs, C): random pairs or pairs with a 40-base
+#: indel (their walkers drift out of a tile's columns: misses), segments
+#: of C = 128 or 64 anti-diagonals (the dispatch's tiles of 32 or 16
+#: rows: long match runs jump whole tiles), the full band or a narrow
+#: window; run_cap 3 and 4 overflow
+SEGMENT_WALK_CASES = [(512, None, "random", 128), (3, None, "random", 128),
+                      (512, 640, "random", 128), (512, None, "indel", 128),
+                      (512, None, "indel", 64), (4, None, "indel", 64), (512, 640, "indel", 64)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("run_cap,k_sub", [(512, None), (3, None), (512, 640)])
-def test_segment_traceback_kernel_matches_plain(cuda_device, run_cap, k_sub):
+@pytest.mark.parametrize("run_cap,k_sub,pairs,C", SEGMENT_WALK_CASES)
+def test_segment_traceback_kernel_matches_plain(cuda_device, run_cap, k_sub, pairs, C):
     """Walk state and run buffers after every segment, from the end cell
-    to the origin, over the kernel's planes; run_cap 3 overflows."""
+    to the origin, over the kernel's planes, equal the plain walk's; each
+    walker's hops and misses equal the tile schedule's emulation
+    (`traceback_segment_tiles`) at the C dispatch's design (tiles of a
+    quarter of the segment, 4 slots), and the walkers crossing a 40-base
+    gap miss. The launch records that design."""
+    from allwave_tpu_torch.testing.batches import long_indel_batch
     from allwave_tpu_torch.wfa import segmented as TS
     from allwave_tpu_torch.wfa.dense import band_geometry
 
-    l_pad, K, C, B = 1024, 1024, 128, 6
-    pen, batch, cert, ckpts = _segment_inputs(cuda_device, "0,5,8,2,24,1", B, l_pad, K, C, 5, 0.08)
+    l_pad, K, B = 1024, 1024, 6
+    if pairs == "random":
+        pen, batch, cert, ckpts = _segment_inputs(cuda_device, "0,5,8,2,24,1", B, l_pad, K, C, 5,
+                                                  0.08)
+    else:
+        pen = resolve_penalties(parse_scores("0,5,8,2,24,1"))
+        batch = tuple(torch.from_numpy(a).to(cuda_device)
+                      for a in long_indel_batch(np.random.RandomState(6), B, 900, l_pad, 40))
+        _, cert, ckpts = TS.dense_sweep_ckpt(*batch, pen, K, l_pad, C)
+    design = TS.segment_walk_design(C, k_sub or K)
+    assert (design.rows, design.slots, design.cols, design.warps) == (C // 4, 4, 56, 5)
     ql, tl = batch[2], batch[3]
     k_end, k0, _ = band_geometry(ql, tl, K)
     d0 = ql + tl
-    walks = [TS.new_walk(d0, (k_end - k0).clamp(0, K - 1), cert & (d0 > 0)) for _ in range(2)]
+    walks = [TS.new_walk(d0, (k_end - k0).clamp(0, K - 1), cert & (d0 > 0)) for _ in range(3)]
     bufs = [TS.new_bufs(B, run_cap, cuda_device) for _ in range(2)]
+    bufs.append(tuple(b.to("cpu", copy=True) for b in bufs[1]))
+    walks[2] = walks[2].cpu()
+    misses = torch.zeros(B, dtype=torch.int32)
+    TS.segment_traceback_launches.reset()
     for seg in range(int(d0.max() - 1) // C, -1, -1):
         c_lo = TS.narrow_offsets(walks[0][1], K, k_sub) if k_sub else None
         _, planes = TS.dense_span(*batch, pen, K, l_pad, seg * C, C, ckpts[:, seg], True,
                                   c_lo=c_lo, k_sub=k_sub)
-        TS.segment_traceback(planes, seg * C, walks[0], bufs[0], l_pad, c_lo=c_lo)
+        stats = torch.zeros((2, B), dtype=torch.int32, device=cuda_device)
+        TS.segment_traceback(planes, seg * C, walks[0], bufs[0], l_pad, c_lo=c_lo, stats=stats)
         TS.traceback_segment_ref(planes, seg * C, walks[1], bufs[1], c_lo=c_lo)
+        emu = torch.zeros((2, B), dtype=torch.int32)
+        TS.traceback_segment_tiles(planes.cpu(), seg * C, walks[2], bufs[2],
+                                   c_lo=None if c_lo is None else c_lo.cpu(), stats=emu,
+                                   design=design)
         torch.cuda.synchronize()
-        assert torch.equal(walks[0], walks[1])
+        assert torch.equal(walks[0], walks[1]) and torch.equal(walks[0].cpu(), walks[2])
         for a, b in zip(bufs[0], bufs[1]):
             assert torch.equal(a, b)
+        assert torch.equal(stats.cpu(), emu)
+        misses += emu[1]
     assert bool(bufs[0][3].any()) == (run_cap < 8)
+    if pairs == "indel" and run_cap > 8:
+        assert int(misses.sum()) > 0
+    assert set(TS.segment_traceback_launches.designs.values()) == {design}
 
 
 @pytest.mark.cuda
@@ -467,34 +505,71 @@ def test_wf_span_kernel_matches_plain(cuda_device, scores_str, B, K, k_sub, G):
     assert TW.wf_span_launches.count == 2 + (k_sub is not None)
 
 
+#: (run_cap, K, pairs, C): the wavefront edge batch or pairs with a
+#: 40-base indel (their walkers drift out of a tile's columns: misses),
+#: segments of C = 128, 64 or 32 levels (the dispatch's tiles of 32, 16
+#: or 8 levels: long match runs jump whole tiles), narrow at K = 2048;
+#: run_cap 4 and 6 overflow
+WF_WALK_CASES = [(512, 256, "edge", 128), (6, 256, "edge", 32), (512, 2048, "edge", 64),
+                 (512, 256, "indel", 128), (512, 256, "indel", 32), (4, 256, "indel", 32),
+                 (512, 2048, "indel", 64)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("run_cap,K", [(512, 256), (6, 256), (512, 2048)])
-def test_wf_traceback_kernel_matches_plain(cuda_device, run_cap, K):
-    """Walk state and the four run buffers after every segment, from
-    the end to the origin, over the span kernel's history planes
-    (narrow at K = 2048); run_cap 6 overflows."""
+@pytest.mark.parametrize("run_cap,K,pairs,C", WF_WALK_CASES)
+def test_wf_traceback_kernel_matches_plain(cuda_device, run_cap, K, pairs, C):
+    """Walk state and the four run buffers after every segment, from the
+    end to the origin, over the span kernel's history planes (narrow at
+    K = 2048), equal the plain walk's; each walker's hops and misses equal
+    the tile schedule's emulation (`traceback_window_tiles`) at the C
+    dispatch's design (tiles of a quarter of the segment, 4 slots), and
+    the walkers crossing a 40-base gap miss. The launch records that
+    design."""
+    from allwave_tpu_torch.testing.batches import long_indel_batch
     from allwave_tpu_torch.wfa import segmented as TS
     from allwave_tpu_torch.wfa import wf_segmented as TW
 
-    l_pad, C, N = K + 256, 32, 512
-    pen, batch, init = _wf_inputs(cuda_device, "0,5,8,2,24,1", l_pad, K, 7, div=0.01)
+    l_pad, N = K + 256, 512
+    if pairs == "edge":
+        pen, batch, init = _wf_inputs(cuda_device, "0,5,8,2,24,1", l_pad, K, 7, div=0.01)
+    else:
+        pen = resolve_penalties(parse_scores("0,5,8,2,24,1"))
+        batch = tuple(torch.from_numpy(a).to(cuda_device)
+                      for a in long_indel_batch(np.random.RandomState(8), 6, K, l_pad, 40, 0.01))
+        init = TW.wf_init(*batch, pen, K)
     ql, tl = batch[2], batch[3]
     ck, _, done, scores = TW.wf_span(*batch, pen, K, l_pad, 0, N, init.seeds, False,
                                      ckpt_every=C, done=init.done0, scores=init.scores0)
-    walks = [TW.new_walk(torch.where(done, scores, -1), init.c_end, tl, done) for _ in range(2)]
+    design = TW.wf_walk_design(C, 512 if K > 512 else K)
+    assert (design.rows, design.slots, design.cols, design.warps) == (C // 4, 4, 32, 6)
+    walks = [TW.new_walk(torch.where(done, scores, -1), init.c_end, tl, done) for _ in range(3)]
     bufs = [TW.new_bufs(len(ql), run_cap, cuda_device) for _ in range(2)]
+    bufs.append(tuple(b.to("cpu", copy=True) for b in bufs[1]))
+    walks[2] = walks[2].cpu()
+    misses = torch.zeros(len(ql), dtype=torch.int32)
     narrow = K > 512
+    TW.wf_traceback_launches.reset()
     for seg in range((int(scores[done].max()) - 1) // C, -1, -1):
         c_lo = TS.narrow_offsets(walks[0][1], K, 512) if narrow else None
         _, hist, _, _ = TW.wf_span(*batch, pen, K, l_pad, seg * C, C, ck[seg], True,
                                    c_lo=c_lo, k_sub=512 if narrow else None)
-        TW.wf_traceback(hist, ck[seg], seg * C, walks[0], bufs[0], pen, c_lo=c_lo)
+        stats = torch.zeros((2, len(ql)), dtype=torch.int32, device=cuda_device)
+        TW.wf_traceback(hist, ck[seg], seg * C, walks[0], bufs[0], pen, c_lo=c_lo, stats=stats)
         TW.traceback_window_ref(hist, ck[seg], seg * C, walks[1], bufs[1], pen, c_lo=c_lo)
+        emu = torch.zeros((2, len(ql)), dtype=torch.int32)
+        TW.traceback_window_tiles(hist.cpu(), ck[seg].cpu(), seg * C, walks[2], bufs[2], pen,
+                                  c_lo=None if c_lo is None else c_lo.cpu(), stats=emu,
+                                  design=design)
         torch.cuda.synchronize()
-        assert torch.equal(walks[0], walks[1])
+        assert torch.equal(walks[0], walks[1]) and torch.equal(walks[0].cpu(), walks[2])
         for a, b in zip(bufs[0], bufs[1]):
             assert torch.equal(a, b)
+        assert torch.equal(stats.cpu(), emu)
+        misses += emu[1]
     assert bool(bufs[0][3].any()) == (run_cap < 64)
+    if pairs == "indel" and run_cap > 64:
+        assert int(misses.sum()) > 0
+    assert set(TW.wf_traceback_launches.designs.values()) == {design}
 
 
 @pytest.mark.cuda

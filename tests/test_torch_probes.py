@@ -331,12 +331,72 @@ def test_sass_loops_count_their_opcodes():
     assert sum(loops[1][2].values()) == 5
 
 
+#: a walker's loop: a hop loads its entry (0x10), a fast way round that
+#: moves by it in two ALU instructions (0x40, 0x50), a slow way round
+#: through a spin wait (0x80-0xb0, whose load's address is fixed) and
+#: three more
+WALK_SASS = """
+		Function : _Z4walkPi
+        /*0000*/                   MOV R2, RZ ;
+        /*0010*/                   LDS.U16 R3, [R2] ;
+        /*0020*/                   ISETP.GT.AND P0, PT, R3, 0x10, PT ;
+        /*0030*/               @P0 BRA 0x80 ;
+        /*0040*/                   SHF.R.S32.HI R4, RZ, 0x8, R3 ;
+        /*0050*/                   IMAD R2, R4, 0x2, R2 ;
+        /*0060*/                   ISETP.NE.AND P1, PT, R4, RZ, PT ;
+        /*0070*/               @P1 BRA 0x10 ;
+        /*0080*/                   LDS R5, [R6] ;
+        /*0090*/                   ISETP.NE.AND P2, PT, R5, RZ, PT ;
+        /*00a0*/                   YIELD ;
+        /*00b0*/               @P2 BRA 0x80 ;
+        /*00c0*/                   IADD3 R2, R2, R3, RZ ;
+        /*00d0*/                   LOP3.LUT R2, R2, 0xff, RZ, 0xc0, !PT ;
+        /*00e0*/                   IADD3 R2, R2, 0x1, RZ ;
+        /*00f0*/                   BRA 0x10 ;
+        /*0100*/                   EXIT ;
+"""
+
+
+@pytest.mark.parametrize("text,dests,sources", [
+    ("ISETP.GE.U32.AND P0, PT, R41, R30, PT", ["P0"], ["R41", "R30"]),
+    ("@!P0 IADD3 R16, P4, R16, 0x1, RZ", ["R16", "P4"], ["P0", "R16"]),
+    ("PLOP3.LUT P2, PT, P2, P1, PT, 0x20, 0x0", ["P2"], ["P2", "P1"]),
+    ("LOP3.LUT P1, RZ, R8, 0x7, R27.reuse, 0xf8, !PT", ["P1"], ["R8", "R27"]),
+    ("SEL R6, R41, R6, !P0", ["R6"], ["R41", "R6", "P0"]),
+    ("IMAD.WIDE.U32 R4, R2, 0x4, R6", ["R4", "R5"], ["R2", "R6"]),
+    ("@P0 LDS.64 R8, [R24+0x10]", ["R8", "R9"], ["P0", "R24"]),
+    ("STG.E.U8 desc[UR8][R24.64], R6", [], ["UR8", "R24", "R25", "R6"]),
+    ("@!P2 BRA P1, 0x2670", [], ["P2", "P1"]),
+])
+def test_sass_operands_name_what_an_instruction_writes_and_reads(text, dests, sources):
+    from allwave_tpu_torch.probes import sass
+
+    _, _, d, s = sass.operands(text)
+    assert (d, s) == (dests, sources)
+
+
+def test_sass_hop_chain_takes_the_walkers_fast_way_round():
+    """The hop's load, its value's two ALU steps to the next address and
+    the branch that waits on one of them: one load and three ALU
+    latencies, in issue order; the spin wait's load does not count."""
+    from allwave_tpu_torch.probes import sass
+
+    funcs, labels = sass.parse(WALK_SASS)
+    chain = sass.hop_chain(funcs["_Z4walkPi"], labels["_Z4walkPi"])
+    assert chain == {"loads": 1, "alu": 3, "at": 0x10}
+    # a walker that moves without reading what it loaded has no chain
+    fixed = WALK_SASS.replace("IMAD R2, R4, 0x2, R2", "IMAD R2, R7, 0x2, R2").replace(
+        "IADD3 R2, R2, R3, RZ", "IADD3 R2, R2, R7, RZ")
+    funcs, labels = sass.parse(fixed)
+    assert sass.hop_chain(funcs["_Z4walkPi"], labels["_Z4walkPi"]) is None
+
+
 def test_probes_import_without_jax():
     code = (
         "import sys; sys.modules['jax'] = None\n"
         "import allwave_tpu_torch.probes.runner, allwave_tpu_torch.wfa.cuda_build as cb\n"
-        "assert {'probe_forward', 'probe_step', 'probe_ops'} <= set(cb.SIGNATURES)\n"
-        "assert len(cb.SIGNATURES) == 9\n"
+        "assert {'probe_forward', 'probe_step', 'probe_ops', 'probe_latency'} <= set(cb.SIGNATURES)\n"
+        "assert len(cb.SIGNATURES) == 10\n"
         "assert not any(m == 'jax' or m.startswith('jax.') or m.startswith('allwave_tpu.') "
         "for m in sys.modules if sys.modules[m])\n"
     )
