@@ -5,8 +5,8 @@
 // `_kernel_t` / `run_dp_chunk_t`, K <= 2048) and `_forward_c2` (kernel
 // `_kernel_c2` / `run_dp_chunk_c2`, the escalation bands 2048 < K <=
 // 16384). Both compute the function of allwave_tpu/wfa/dense.py
-// `dense_forward`; they differ only in TPU layout, so one source serves
-// every K here. Its plain twin is allwave_tpu_torch/wfa/dense.py
+// `dense_forward`; they differ only in TPU layout, so one dispatch
+// serves every K here. Its plain twin is allwave_tpu_torch/wfa/dense.py
 // `dense_forward_ref`: scores, certificates and every plane entry --
 // reachable or not -- equal its.
 //
@@ -30,10 +30,18 @@
 //   double-buffered halo in shared memory (6 ints an edge), so a step
 //   needs one __syncthreads. (Tier 3 takes these bands too where the
 //   base tables of a pair do not fit shared memory: l_pad above ~110k.)
-// * Tier 3, wider bands: one block a pair, the bands double-buffered
-//   in shared memory (42 bytes a lane) or, above T3_SMEM_MAX bytes, in
-//   a per-pair global scratch that the wrapper allocates; one barrier a
-//   step. Only the one-shot 24 kb run and rare escalations reach it.
+// * Tier 3, wider bands: a thread-block cluster a pair, the replay
+//   cluster of csrc/dense_span.cu (`dense_replay_cluster_kernel`, its
+//   design from allwave_dense_span_design over the full band: up to 16
+//   blocks of 4-12 warps, 4 or 8 band lanes a thread in registers, halos
+//   over distributed shared memory, base tables restaged every 4096
+//   steps) run over the window W = K from d = 0 and the origin state
+//   (S = 0 at k = 0, INF elsewhere, runs 0). Its plane rows are the
+//   forward's (row stride B*K), and every lane writes its entry every
+//   step from the values its neighbours held before the step, as here.
+//   The wrapper (wfa/dense.py `dense_forward`) launches it, then
+//   `dense_forward_finish_kernel` below: the scores and certificates
+//   from its end state's S band. No band lives in device memory.
 //
 // Tiers 1 and 2 share one kernel. The band's k0 is even and LPT is
 // even, so a lane's parity of k is its register index's parity, and
@@ -61,7 +69,6 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int T1_PAIRS = 4;       // tier 1: pairs (warps) a block
 constexpr int T1_MAX_LPT = 12;    // tier 1: K <= 384
 constexpr int T2_MAX_K = 4096;    // tier 2: K <= 4096
-constexpr int T3_SMEM_MAX = 200 * 1024;   // tier 3: bands in shared memory
 constexpr int SMEM_LIMIT = 227 * 1024;
 
 
@@ -75,166 +82,6 @@ struct Pen {
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
-}
-
-// ---------------------------------------------------------------------
-// tier 3: bands in shared memory or a global scratch, one barrier a step
-
-template <bool TWO_PIECE>
-__global__ void dense_forward_kernel(
-    const uint8_t* __restrict__ qs, const uint8_t* __restrict__ ts,
-    const int* __restrict__ qlens, const int* __restrict__ tlens,
-    int B, int l_pad, int K, Pen pen, int* __restrict__ scores,
-    uint8_t* __restrict__ cert, uint16_t* __restrict__ planes,
-    int* iscratch, uint8_t* rscratch) {
-  extern __shared__ int smem[];
-  const int b = blockIdx.x;
-  const int qlen = qlens[b];
-  const int tlen = tlens[b];
-  const uint8_t* q = qs + (size_t)b * l_pad;
-  const uint8_t* t = ts + (size_t)b * l_pad;
-
-  // band geometry (dense.py _band_geometry): even-aligned k0
-  const int k_end = tlen - qlen;
-  const int abs_kend = k_end < 0 ? -k_end : k_end;
-  const int slack = (K - 1 - abs_kend) >> 1;  // floor division by 2
-  int k0 = min(0, k_end) - slack;
-  k0 -= (k0 & 1);
-  const int w_l = min(0, k_end) - k0;
-  const int w_r = (k0 + (K - 1)) - max(0, k_end);
-  const int width = min(w_l, w_r);
-
-  // bands: [buf][band][K] int32 (S, I1, D1, I2, D2) + [buf][K] run length
-  int* ib;
-  uint8_t* rb;
-  if (iscratch != nullptr) {
-    ib = iscratch + (size_t)b * 10 * K;
-    rb = rscratch + (size_t)b * 2 * K;
-  } else {
-    ib = smem;
-    rb = reinterpret_cast<uint8_t*>(smem + 10 * K);
-  }
-#define BAND(buf, band) (ib + ((buf) * 5 + (band)) * K)
-
-  for (int c = threadIdx.x; c < K; c += blockDim.x) {
-    BAND(0, 0)[c] = (k0 + c == 0) ? 0 : AW_INF;
-    BAND(0, 1)[c] = AW_INF;
-    BAND(0, 2)[c] = AW_INF;
-    BAND(0, 3)[c] = AW_INF;
-    BAND(0, 4)[c] = AW_INF;
-    rb[c] = 0;
-  }
-  __syncthreads();
-
-  const int D2 = 2 * l_pad;
-  const size_t plane_stride = (size_t)B * K;
-  uint16_t* prow = planes + (size_t)b * K;
-  for (int d = 1; d <= D2; ++d) {
-    const int pb = (d - 1) & 1;
-    const int nb = d & 1;
-    const int* S = BAND(pb, 0);
-    const int* I1 = BAND(pb, 1);
-    const int* D1 = BAND(pb, 2);
-    const int* I2 = BAND(pb, 3);
-    const int* Dd2 = BAND(pb, 4);
-    const uint8_t* R = rb + pb * K;
-    int* So = BAND(nb, 0);
-    int* I1o = BAND(nb, 1);
-    int* D1o = BAND(nb, 2);
-    int* I2o = BAND(nb, 3);
-    int* D2o = BAND(nb, 4);
-    uint8_t* Ro = rb + nb * K;
-    uint16_t* plane = prow + (size_t)(d - 1) * plane_stride;
-
-    for (int c = threadIdx.x; c < K; c += blockDim.x) {
-      const int k = k0 + c;
-      const int v = (d - k) >> 1;
-      const int h = (d + k) >> 1;
-      const bool parity_ok = ((d - k) & 1) == 0;
-      const bool active =
-          parity_ok && v >= 0 && v <= qlen && h >= 0 && h <= tlen;
-
-      const int s_prev = S[c];
-      const int s_km1 = c > 0 ? S[c - 1] : AW_INF;
-      const int s_kp1 = c < K - 1 ? S[c + 1] : AW_INF;
-
-      const int i1_ext_v = (c > 0 ? I1[c - 1] : AW_INF) + pen.e1;
-      const int i1_opn_v = s_km1 + pen.o1e1;
-      const int i1_new = min(i1_opn_v, i1_ext_v);
-      const int i1_ext = i1_ext_v <= i1_opn_v;
-      const int d1_ext_v = (c < K - 1 ? D1[c + 1] : AW_INF) + pen.e1;
-      const int d1_opn_v = s_kp1 + pen.o1e1;
-      const int d1_new = min(d1_opn_v, d1_ext_v);
-      const int d1_ext = d1_ext_v <= d1_opn_v;
-      int best_gap = min(i1_new, d1_new);
-
-      int i2_new = I2[c], d2_new = Dd2[c], i2_ext = 0, d2_ext = 0;
-      if (TWO_PIECE) {
-        const int i2_ext_v = (c > 0 ? I2[c - 1] : AW_INF) + pen.e2;
-        const int i2_opn_v = s_km1 + pen.o2e2;
-        i2_new = min(i2_opn_v, i2_ext_v);
-        i2_ext = i2_ext_v <= i2_opn_v;
-        const int d2_ext_v = (c < K - 1 ? Dd2[c + 1] : AW_INF) + pen.e2;
-        const int d2_opn_v = s_kp1 + pen.o2e2;
-        d2_new = min(d2_opn_v, d2_ext_v);
-        d2_ext = d2_ext_v <= d2_opn_v;
-        best_gap = min(best_gap, min(i2_new, d2_new));
-      }
-
-      // bases at the clamped indices the XLA shift registers hold:
-      // q[v-1] via rq[qlen - v], t[h-1]
-      const int qi = clampi(qlen - v, 0, l_pad - 1);
-      const uint8_t qb = q[clampi(qlen - 1 - qi, 0, l_pad - 1)];
-      const uint8_t tb = t[clampi(h - 1, 0, l_pad - 1)];
-      const bool is_match = qb == tb;
-      const bool diag_ok = v > 0 && h > 0;
-      const int diag = diag_ok ? s_prev + (is_match ? 0 : pen.x) : AW_INF;
-      const int s_new = min(diag, best_gap);
-
-      // last write wins: D2 < D1 < I2 < I1 < diag-mismatch
-      int choice = 0;
-      if (TWO_PIECE && d2_new == s_new) choice = 5;
-      if (d1_new == s_new) choice = 4;
-      if (TWO_PIECE && i2_new == s_new) choice = 3;
-      if (i1_new == s_new) choice = 2;
-      if (diag_ok && diag == s_new && !is_match) choice = 1;
-      const int packed =
-          choice | (i1_ext << 3) | (d1_ext << 4) | (i2_ext << 5) | (d2_ext << 6);
-      const int run_prev = R[c];
-      const int new_run = choice == 0 ? min(run_prev, 254) + 1 : 0;
-      plane[c] = (uint16_t)(packed | (new_run << 8));
-
-      if (active) {
-        So[c] = min(s_new, AW_INF);
-        I1o[c] = min(i1_new, AW_INF);
-        D1o[c] = min(d1_new, AW_INF);
-        I2o[c] = min(i2_new, AW_INF);
-        D2o[c] = min(d2_new, AW_INF);
-        Ro[c] = (uint8_t)new_run;
-      } else {
-        So[c] = s_prev;
-        I1o[c] = I1[c];
-        D1o[c] = D1[c];
-        I2o[c] = I2[c];
-        D2o[c] = Dd2[c];
-        Ro[c] = (uint8_t)run_prev;
-      }
-    }
-    __syncthreads();
-  }
-
-  if (threadIdx.x == 0) {
-    const int c_end = clampi(k_end - k0, 0, K - 1);
-    const bool feasible = abs_kend <= K - 1 && qlen + tlen <= D2;
-    const int score = feasible ? BAND(D2 & 1, 0)[c_end] : AW_INF;
-    const int n = max(width, 0) + 1;
-    const int g1 = pen.o1 + n * pen.e1;
-    const int esc = 2 * (TWO_PIECE ? min(g1, pen.o2 + n * pen.e2) : g1);
-    const bool full_cover = k0 <= -qlen && k0 + (K - 1) >= tlen;
-    scores[b] = score;
-    cert[b] = ((score < esc) || full_cover) && feasible && score < AW_INF;
-  }
-#undef BAND
 }
 
 // ---------------------------------------------------------------------
@@ -541,6 +388,38 @@ __global__ void __launch_bounds__(T2 ? 512 : 32 * T1_PAIRS, T2 ? 1 : t1_min_bloc
 }
 
 // ---------------------------------------------------------------------
+// tier 3's epilogue: a thread a pair
+
+// The score at c_end of the end state's S band (INF where the end cell
+// is outside the band or the matrix) and the optimality certificate
+// (dense.py dense_forward: a band-escaping path costs at least twice
+// g(width + 1); a band covering every diagonal is the unbanded DP).
+__global__ void dense_forward_finish_kernel(const int* __restrict__ qlens,
+                                            const int* __restrict__ tlens, int B,
+                                            int l_pad, int K, Pen pen, bool two_piece,
+                                            const int* __restrict__ s_band,
+                                            int* __restrict__ scores,
+                                            uint8_t* __restrict__ cert) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const int qlen = qlens[b], tlen = tlens[b];
+  const int k_end = tlen - qlen;
+  const int abs_kend = k_end < 0 ? -k_end : k_end;
+  int k0 = min(0, k_end) - ((K - 1 - abs_kend) >> 1);
+  k0 -= (k0 & 1);
+  const int width = min(min(0, k_end) - k0, (k0 + (K - 1)) - max(0, k_end));
+  const int c_end = clampi(k_end - k0, 0, K - 1);
+  const bool feasible = abs_kend <= K - 1 && qlen + tlen <= 2 * l_pad;
+  const int score = feasible ? s_band[(size_t)b * K + c_end] : AW_INF;
+  const int n = max(width, 0) + 1;
+  const int g1 = pen.o1 + n * pen.e1;
+  const int esc = 2 * (two_piece ? min(g1, pen.o2 + n * pen.e2) : g1);
+  const bool full_cover = k0 <= -qlen && k0 + (K - 1) >= tlen;
+  scores[b] = score;
+  cert[b] = ((score < esc) || full_cover) && feasible && score < AW_INF;
+}
+
+// ---------------------------------------------------------------------
 // the dispatch
 
 struct Design {
@@ -548,7 +427,6 @@ struct Design {
   int lpt;    // lanes a thread (tiers 1-2)
   int nw;     // warps a pair (tiers 1-2)
   int stage;  // base tables staged in shared memory (tiers 1-2)
-  int scratch;  // bands in the global scratch (tier 3)
 };
 
 int table_bytes(const Design& g, int l_pad) {
@@ -567,9 +445,9 @@ int smem_bytes(const Design& g, int l_pad) {
 // always. Tier 2 stages its tables (its read-only instantiations would
 // spill at 8 lanes a thread); where they do not fit shared memory (l_pad
 // above ~110k), tier 3 takes the band. Returns false for a design that
-// cannot run.
+// cannot run. Tier 3's cluster is the span's dispatch's.
 bool choose(int K, int l_pad, int stage, Design* g) {
-  *g = Design{0, 0, 0, 0, 0};
+  *g = Design{0, 0, 0, 0};
   if (K < 1 || l_pad < 1) return false;
   if (K <= 32 * T1_MAX_LPT) {
     g->tier = 1;
@@ -593,16 +471,15 @@ bool choose(int K, int l_pad, int stage, Design* g) {
       }
     }
     if (smem_bytes(*g, l_pad) <= SMEM_LIMIT) return stage != 0;
-    *g = Design{0, 0, 0, 0, 0};
+    *g = Design{0, 0, 0, 0};
   }
   g->tier = 3;
-  g->scratch = 42 * K > T3_SMEM_MAX;
-  return stage != 1;
+  g->stage = 1;  // the replay's tables, a stretch of steps at a time
+  return stage != 0;
 }
 
 int encode(const Design& g) {
-  return g.tier | (g.lpt << 2) | (g.nw << 8) | (g.stage << 16) |
-         (g.scratch << 17);
+  return g.tier | (g.lpt << 2) | (g.nw << 8) | (g.stage << 16);
 }
 
 template <int LPT, bool TWO, bool T2>
@@ -670,25 +547,25 @@ extern "C" {
 
 // The design a launch at band K and l_pad runs, as a code: bits 0-1 the
 // tier (1-3), 2-7 lanes a thread and 8-15 warps a pair (tiers 1-2), bit
-// 16 base tables staged in shared memory (tiers 1-2), bit 17 bands in
-// the global scratch (tier 3: the wrapper allocates it). stage_bases:
-// -1 the dispatch's choice, 0 or 1 to read bases through the read-only
-// path or from the staged tables (tiers 1-2). -1 for a design that
-// cannot run.
+// 16 base tables staged in shared memory (tiers 1-2). stage_bases: -1
+// the dispatch's choice, 0 or 1 to read bases through the read-only
+// path or from the staged tables (tiers 1-2; tiers 2-3 always stage).
+// -1 for a design that cannot run. Tier 3 runs csrc/dense_span.cu's
+// replay cluster, whose design is allwave_dense_span_design(K, K, 1, B,
+// two_piece).
 int allwave_dense_forward_design(int K, int l_pad, int stage_bases) {
   Design g;
   if (!choose(K, l_pad, stage_bases, &g)) return -1;
   return encode(g);
 }
 
-// design: a code of allwave_dense_forward_design for this K and l_pad.
-// iscratch (B, 10, K) int32 and rscratch (B, 2, K) uint8 where the
-// design's bit 17 is set, else null.
+// Tiers 1-2. design: a code of allwave_dense_forward_design for this K
+// and l_pad.
 int allwave_dense_forward(const void* qs, const void* ts, const void* qlens,
                           const void* tlens, int B, int l_pad, int K, int x,
                           int o1, int e1, int o2, int e2, int two_piece,
                           int design, void* scores, void* cert, void* planes,
-                          void* iscratch, void* rscratch, void* stream) {
+                          void* stream) {
   Pen pen;
   pen.x = x;
   pen.o1 = o1;
@@ -702,37 +579,33 @@ int allwave_dense_forward(const void* qs, const void* ts, const void* qlens,
   bool ok = false;
   for (int stage = 0; stage <= 1 && !ok; ++stage)
     ok = choose(K, l_pad, stage, &g) && encode(g) == design;
-  if (!ok || (g.scratch != 0) != (iscratch != nullptr) ||
-      (iscratch != nullptr) != (rscratch != nullptr))
-    return (int)cudaErrorInvalidValue;
+  if (!ok || g.tier == 3) return (int)cudaErrorInvalidValue;
   if (B <= 0) return 0;
-  if (g.tier != 3) {
-    return two_piece ? launch_tiers12<true>(g, qs, ts, qlens, tlens, B, l_pad,
-                                            K, pen, scores, cert, planes, st)
-                     : launch_tiers12<false>(g, qs, ts, qlens, tlens, B, l_pad,
-                                             K, pen, scores, cert, planes, st);
-  }
-  const int threads = K >= 1024 ? 1024 : ((K + 31) / 32) * 32;
-  const int smem = g.scratch ? 0 : 42 * K;
-  if (two_piece) {
-    cudaFuncSetAttribute(dense_forward_kernel<true>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    dense_forward_kernel<true><<<B, threads, smem, st>>>(
-        static_cast<const uint8_t*>(qs), static_cast<const uint8_t*>(ts),
-        static_cast<const int*>(qlens), static_cast<const int*>(tlens), B,
-        l_pad, K, pen, static_cast<int*>(scores), static_cast<uint8_t*>(cert),
-        static_cast<uint16_t*>(planes), static_cast<int*>(iscratch),
-        static_cast<uint8_t*>(rscratch));
-  } else {
-    cudaFuncSetAttribute(dense_forward_kernel<false>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    dense_forward_kernel<false><<<B, threads, smem, st>>>(
-        static_cast<const uint8_t*>(qs), static_cast<const uint8_t*>(ts),
-        static_cast<const int*>(qlens), static_cast<const int*>(tlens), B,
-        l_pad, K, pen, static_cast<int*>(scores), static_cast<uint8_t*>(cert),
-        static_cast<uint16_t*>(planes), static_cast<int*>(iscratch),
-        static_cast<uint8_t*>(rscratch));
-  }
+  return two_piece ? launch_tiers12<true>(g, qs, ts, qlens, tlens, B, l_pad, K,
+                                          pen, scores, cert, planes, st)
+                   : launch_tiers12<false>(g, qs, ts, qlens, tlens, B, l_pad, K,
+                                           pen, scores, cert, planes, st);
+}
+
+// Tier 3's epilogue: scores (B,) int32 and cert (B,) uint8 from the
+// replay cluster's end state, whose S band s_band (B, K) int32 is the
+// state at d = 2 l_pad.
+int allwave_dense_forward_finish(const void* qlens, const void* tlens, int B,
+                                 int l_pad, int K, int o1, int e1, int o2,
+                                 int e2, int two_piece, const void* s_band,
+                                 void* scores, void* cert, void* stream) {
+  if (B <= 0) return 0;
+  Pen pen = {};
+  pen.o1 = o1;
+  pen.e1 = e1;
+  pen.o2 = o2;
+  pen.e2 = e2;
+  const int threads = 128;
+  dense_forward_finish_kernel<<<(B + threads - 1) / threads, threads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(qlens), static_cast<const int*>(tlens), B, l_pad, K, pen,
+      two_piece != 0, static_cast<const int*>(s_band), static_cast<int*>(scores),
+      static_cast<uint8_t*>(cert));
   return (int)cudaGetLastError();
 }
 

@@ -462,10 +462,13 @@ __global__ void __launch_bounds__(32 * RP_MAX_WARPS, 1) dense_replay_cluster_ker
 
   int S[LPT], I1[LPT], D1[LPT], I2[TWO ? LPT : 1], D2[TWO ? LPT : 1], R[LPT];
   const long long src = (long long)b * K + col0 + c0;
+  // a null state_in is the origin state (the forward's tier 3 from d = 0):
+  // S = 0 at k = 0, every other entry INF
+  const bool origin = state_in == nullptr;
 #pragma unroll
   for (int i = 0; i < LPT; ++i) {
-    const bool in = i < nin;
-    S[i] = in ? state_in[src + i] : AW_INF;
+    const bool in = i < nin && !origin;
+    S[i] = in ? state_in[src + i] : (origin && i < nin && kt + i == 0 ? 0 : AW_INF);
     I1[i] = in ? state_in[in_band_stride + src + i] : AW_INF;
     D1[i] = in ? state_in[2 * in_band_stride + src + i] : AW_INF;
     if (TWO) {
@@ -587,8 +590,10 @@ __global__ void __launch_bounds__(32 * RP_MAX_WARPS, 1) dense_replay_cluster_ker
     state_out[out_band_stride + dst + i] = I1[i];
     state_out[2 * out_band_stride + dst + i] = D1[i];
     // one-piece penalties leave I2 and D2 as they came
-    state_out[3 * out_band_stride + dst + i] = TWO ? I2[i] : state_in[3 * in_band_stride + src + i];
-    state_out[4 * out_band_stride + dst + i] = TWO ? D2[i] : state_in[4 * in_band_stride + src + i];
+    state_out[3 * out_band_stride + dst + i] =
+        TWO ? I2[i] : (origin ? AW_INF : state_in[3 * in_band_stride + src + i]);
+    state_out[4 * out_band_stride + dst + i] =
+        TWO ? D2[i] : (origin ? AW_INF : state_in[4 * in_band_stride + src + i]);
   }
 }
 
@@ -819,7 +824,9 @@ int allwave_dense_sweep_barriers(int K, int W, int B, int n_steps,
 // element offset i * (in|out)_band_stride; c_lo may be null (full band,
 // W == K); design: the code allwave_dense_span_design gives for (K, W,
 // with_planes, B, two_piece); planes (n_steps, B, W) uint16, written
-// (and not null) when with_planes.
+// (and not null) when with_planes. A replay over the full band from
+// d_lo = 0 may take a null state_in: the origin state (the forward's
+// tier 3).
 int allwave_dense_span(const void* qs, const void* ts, const void* qlens,
                        const void* tlens, const void* c_lo, int B, int l_pad,
                        int K, int W, int d_lo, int n_steps, int x, int o1,
@@ -836,7 +843,8 @@ int allwave_dense_span(const void* qs, const void* ts, const void* qlens,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Design g;
   if (!choose(K, W, with_planes, B, two_piece, &g) || encode(g) != design ||
-      (planes != nullptr) != (with_planes != 0))
+      (planes != nullptr) != (with_planes != 0) ||
+      (state_in == nullptr && (!with_planes || c_lo != nullptr || d_lo != 0)))
     return (int)cudaErrorInvalidValue;
   if (B <= 0) return 0;
   if (!g.replay) {

@@ -1,7 +1,9 @@
 // Latency probe: one thread's chain of dependent operations, the
-// yardstick of the long-path walks' chain bound (a walk's longest
-// walker's hops, each at least one shared-memory load and the hop's
-// dependent ALU instructions; chip_smoke.py phase 16).
+// yardstick of the walks' chain bounds (chip_smoke.py phase 16): a
+// long-path walk's longest walker's hops, each at least one shared-
+// memory load and the hop's dependent ALU instructions; the dense
+// traceback's longest walker's round trips, each at least one device-
+// memory load that misses L2.
 //
 // Replaces no TPU kernel. Plain twin: none (it computes nothing to
 // check); allwave_tpu_torch/probes/latency.py times it.
@@ -11,9 +13,12 @@
 // chase round a ring of 256 words, each load's address the last one's
 // value), kind 1 integer adds and xors taken in turn (2n operations,
 // each reading the last one's result; ptxas merges neither pair into one
-// instruction). Volatile inline PTX keeps every operation; the result
-// goes to *sink so nothing is dropped. Two lengths timed apart take the
-// launch out.
+// instruction); and `dram_kernel`, device-memory loads (a pointer
+// chase through a buffer several times the L2, ld.global.cg so L1 serves
+// none, each entry the index of the next, never the same 32-byte sector
+// twice in a chain; the caller flushes L2 first). Volatile inline PTX
+// keeps every operation; the result goes to *sink so nothing is
+// dropped. Two lengths timed apart take the launch out.
 
 #include <cuda_runtime.h>
 
@@ -38,6 +43,16 @@ __global__ void latency_kernel(int kind, int n, int* sink) {
   sink[0] = (int)v;
 }
 
+// n dependent loads from buf, from index start on: each loads the index
+// of the next
+__global__ void dram_kernel(const unsigned* buf, unsigned start, int n, int* sink) {
+  unsigned v = start;
+#pragma unroll 4
+  for (int k = 0; k < n; ++k)
+    asm volatile("ld.global.cg.u32 %0, [%1];" : "=r"(v) : "l"(buf + v) : "memory");
+  sink[0] = (int)v;
+}
+
 }  // namespace
 
 extern "C" {
@@ -47,6 +62,14 @@ extern "C" {
 int allwave_probe_latency(int kind, int n, void* sink, void* stream) {
   latency_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(kind, n,
                                                                 static_cast<int*>(sink));
+  return (int)cudaGetLastError();
+}
+
+// n dependent device-memory loads on one thread, from buf[start]: buf
+// (int32 indices into itself); sink (1,) int32.
+int allwave_probe_dram(const void* buf, int start, int n, void* sink, void* stream) {
+  dram_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned*>(buf), (unsigned)start, n, static_cast<int*>(sink));
   return (int)cudaGetLastError();
 }
 

@@ -52,15 +52,13 @@ _L = ctypes.c_longlong
 #: C signatures: name -> (argtypes, restype), per source
 SIGNATURES = {
     "dense_forward": {
-        "allwave_dense_forward": ([_P] * 4 + [_I] * 10 + [_P] * 6, _I),
+        "allwave_dense_forward": ([_P] * 4 + [_I] * 10 + [_P] * 4, _I),
         "allwave_dense_forward_design": ([_I, _I, _I], _I),
+        "allwave_dense_forward_finish": ([_P, _P] + [_I] * 8 + [_P] * 4, _I),
         "allwave_cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "dense_traceback": {
-        "allwave_dense_traceback": (
-            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
-            _I,
-        ),
+        "allwave_dense_traceback": ([_P] * 5 + [_I] * 4 + [_P] * 3, _I),
     },
     "dense_span": {
         "allwave_dense_span": (
@@ -106,6 +104,7 @@ SIGNATURES = {
     },
     "probe_latency": {
         "allwave_probe_latency": ([_I, _I, _P, _P], _I),
+        "allwave_probe_dram": ([_P, _I, _I, _P, _P], _I),
     },
 }
 

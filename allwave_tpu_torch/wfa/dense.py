@@ -19,7 +19,10 @@ Each step has two versions here:
 * a hand-written CUDA kernel (csrc/dense_forward.cu,
   csrc/dense_traceback.cu). The forward has three designs (tiers) by
   band width; the C entry point `allwave_dense_forward_design` says
-  which one a (K, l_pad) runs, and `forward_design` reads it.
+  which one a (K, l_pad) runs, and `forward_design` reads it. Tier 3
+  launches the replay cluster of csrc/dense_span.cu from the origin.
+  The traceback is a warp a pair that loads the cells a walk can reach
+  next in one round trip; `dense_traceback_groups` emulates it.
 
 The public wrappers `dense_forward` and `dense_traceback` pick by the
 device of the tensors they are given: a CPU tensor goes to the plain
@@ -248,7 +251,7 @@ def dense_forward_ref(
     qlens = qlens.to(i32)
     tlens = tlens.to(i32)
 
-    k_end, k0, slack = band_geometry(qlens, tlens, K)
+    _, k0, _ = band_geometry(qlens, tlens, K)
     ks = k0[:, None] + torch.arange(K, dtype=i32, device=dev)[None, :]
     rq, qb, tb = base_registers(qs, ts, qlens, k0, K, l_pad, 0)
 
@@ -262,11 +265,21 @@ def dense_forward_ref(
         qb, tb = shift_bases(rq, ts, qb, tb, qlens, k0, K, l_pad, d)
         bands, run, row = dp_step(d, ks, qlens, tlens, bands, run, qb, tb, pen, True)
         planes[d - 1] = row.to(torch.uint16)
-    s = bands[0]
+    scores, cert = forward_finish(bands[0], qlens, tlens, pen, K, l_pad)
+    return scores, cert, planes
 
+
+def forward_finish(s_band, qlens, tlens, pen: Penalties, K: int, l_pad: int):
+    """The forward's scores ((B,) int32, INF where the end cell is
+    outside the band or the matrix) and certificates ((B,) bool) from
+    the S band (B, K) at d = 2 l_pad (reference: the tail of
+    allwave_tpu/wfa/dense.py dense_forward)."""
+    qlens = qlens.to(torch.int32)
+    tlens = tlens.to(torch.int32)
+    k_end, k0, slack = band_geometry(qlens, tlens, K)
     c_end = (k_end - k0).clamp(0, K - 1)
-    scores = torch.gather(s, 1, c_end[:, None].long())[:, 0]
-    feasible = (k_end.abs() <= K - 1) & (qlens + tlens <= D2)
+    scores = torch.gather(s_band, 1, c_end[:, None].long())[:, 0]
+    feasible = (k_end.abs() <= K - 1) & (qlens + tlens <= 2 * l_pad)
     scores = torch.where(feasible, scores, INF)
 
     # optimality certificate: a band-escaping global path needs >= W+1
@@ -277,7 +290,7 @@ def dense_forward_ref(
     # a band covering every diagonal of the matrix is the unbanded DP
     full_cover = (k0 <= -qlens) & (k0 + (K - 1) >= tlens)
     cert = ((scores < esc) | full_cover) & feasible & (scores < INF)
-    return scores.to(i32), cert, planes
+    return scores.to(torch.int32), cert
 
 
 def dense_traceback_ref(
@@ -286,13 +299,16 @@ def dense_traceback_ref(
     qlens: torch.Tensor,
     tlens: torch.Tensor,
     run_cap: int,
+    trace: Optional[list] = None,
 ):
     """Plain version of the traceback: allwave_tpu/wfa/dense.py
     dense_traceback over an uncompressed (2*l_pad, B, K) plane.
 
     Returns (ops (B, run_cap) uint8 — op chars, end-to-start; lens
     (B, run_cap) uint8; nruns (B,) int32 — counting runs dropped past
-    run_cap; overflow (B,) bool). Runs on any torch device."""
+    run_cap; overflow (B,) bool). Runs on any torch device. A `trace`
+    list receives each hop's (d, c, component, active) (B,) tensors,
+    the cell it reads, for `dense_traceback_groups`."""
     D2, B, K = planes.shape
     dev = planes.device
     i32 = torch.int32
@@ -319,6 +335,8 @@ def dense_traceback_ref(
     for hop in range(max_hops):
         if hop % CHUNK == 0 and not bool(active.any()):
             break
+        if trace is not None:
+            trace.append((d, c, comp, active))
         ok = (d >= 1) & (d <= D2) & (c >= 0) & (c < K)
         dd = (d - 1).clamp(0, D2 - 1).long()
         cc = c.clamp(0, K - 1).long()
@@ -388,6 +406,64 @@ def dense_traceback_ref(
     return ops[:, :run_cap], lens[:, :run_cap], nrun, overflow
 
 
+#: the cells a round trip of csrc/dense_traceback.cu loads, by the
+#: pattern of the walker's component (S, I, D) and lane: lane l reads
+#: (d - back, c + dc) from the round's first cell (d, c). From an S cell:
+#: the cell, its X successor and the first cell of each gap chain (its
+#: NCHAIN = 1); from a gap cell: eight cells of its own chain (NGAP).
+WALK_CELLS = (
+    ((0, 0), (2, 0), (1, -1), (1, 1)),
+    tuple((j, -j) for j in range(8)),
+    tuple((j, j) for j in range(8)),
+)
+
+
+def dense_traceback_groups(planes, scores, cert, qlens, tlens, run_cap: int):
+    """Plain emulation of csrc/dense_traceback.cu's schedule over the
+    plain walk's hops: a round trip loads the `WALK_CELLS` of the walker's
+    component from the first cell the walk needs, under the walk's guard,
+    and the next round starts at the first hop whose cell the round did
+    not load. Returns (the packed rows of `pack_alignments`, stats (3, B)
+    int32: hops, round trips and modeled sectors a pair, the distinct
+    32-byte sectors of the plane that each round's loaded cells lie in;
+    the kernel counts the first two), on any device."""
+    D2, B, K = planes.shape
+    dev = planes.device
+    i32 = torch.int32
+    trace = []
+    ops, lens, nruns, overflow = dense_traceback_ref(planes, scores, qlens, tlens, run_cap, trace)
+    # the patterns' cells, padded to one width with cells behind the walk
+    # (back -1: never hit, not loaded)
+    n = max(len(p) for p in WALK_CELLS)
+    padded = [list(p) + [(-1, 0)] * (n - len(p)) for p in WALK_CELLS]
+    back_t = torch.tensor([[b for b, _ in p] for p in padded], dtype=i32, device=dev)
+    dc_t = torch.tensor([[x for _, x in p] for p in padded], dtype=i32, device=dev)
+    rows = torch.arange(B, device=dev)[:, None]
+    stats = torch.zeros((3, B), dtype=i32, device=dev)
+    pat = torch.full((B,), -1, dtype=i32, device=dev)  # no round loaded yet
+    td = torch.zeros(B, dtype=i32, device=dev)
+    tc = torch.zeros(B, dtype=i32, device=dev)
+    for d, c, comp, active in trace:
+        # a lane of the pair's round loaded (d, c), or a round starts there
+        p = pat.clamp(min=0).long()
+        hit = (back_t[p] == (td - d)[:, None]) & (dc_t[p] == (c - tc)[:, None])
+        need = active & ~(hit & (pat >= 0)[:, None]).any(1)
+        td = torch.where(need, d, td)
+        tc = torch.where(need, c, tc)
+        pat = torch.where(need, torch.where(comp == 0, 0, torch.where(comp % 2 == 1, 1, 2)), pat)
+        p = pat.clamp(min=0).long()
+        fd, fc = td[:, None] - back_t[p], tc[:, None] + dc_t[p]
+        inside = (back_t[p] >= 0) & (fd >= 1) & (fd <= D2) & (fc >= 0) & (fc < K)
+        sector = ((((fd.long() - 1) * B + rows) * K + fc) * 2) >> 5
+        sector = torch.where(inside, sector, -1).sort(1).values
+        new = sector >= 0
+        new[:, 1:] &= sector[:, 1:] != sector[:, :-1]
+        stats[0] += active.to(i32)
+        stats[1] += need.to(i32)
+        stats[2] += torch.where(need, new.sum(1, dtype=i32), 0)
+    return pack_alignments(scores, cert, ops, lens, nruns, overflow), stats
+
+
 def pack_alignments(scores, cert, ops, lens, nruns, overflow) -> torch.Tensor:
     """Plain version of the packed-result epilogue (reference:
     allwave_tpu/wfa/dense.py dense_align_packed). One row per pair:
@@ -439,29 +515,42 @@ def pack_alignments(scores, cert, ops, lens, nruns, overflow) -> torch.Tensor:
 
 
 class ForwardDesign(NamedTuple):
-    """What csrc/dense_forward.cu runs at one (K, l_pad): the fields of
-    the code `allwave_dense_forward_design` returns."""
+    """What a forward launch at one (K, l_pad, B) runs: the fields of the
+    code `allwave_dense_forward_design` returns (tiers 1-2, in
+    csrc/dense_forward.cu) or, for tier 3, of the replay cluster's
+    design in csrc/dense_span.cu (`segmented.span_design` over the full
+    band) that it launches from the origin."""
 
     code: int
-    tier: int  # 1: a warp a pair; 2: a block a pair, a halo; 3: bands in memory
+    tier: int  # 1: a warp a pair; 2: a block a pair, a halo; 3: a cluster a pair
     lanes_per_thread: int
     warps_per_pair: int
-    stage_bases: bool  # base tables in shared memory (tier 1; tier 2 always)
-    scratch: bool  # bands in a global scratch (tier 3)
+    stage_bases: bool  # base tables in shared memory (tier 1; tiers 2-3 always)
+    blocks_per_pair: int  # the cluster G (tier 3), else 1
+    span_code: int  # tier 3: the code of its span design, else 0
 
 
-def forward_design(K: int, l_pad: int, stage_bases: Optional[bool] = None) -> ForwardDesign:
-    """The forward kernel's design at band K and l_pad, from its C
-    dispatch; `stage_bases` overrides where tier 1 reads the bases.
-    Raises for a design that cannot run."""
+def forward_design(K: int, l_pad: int, B: int, two_piece: bool,
+                   stage_bases: Optional[bool] = None) -> ForwardDesign:
+    """The forward's design at band K and l_pad for B pairs, from its C
+    dispatch; tier 3's cluster from the span's dispatch (the cluster size
+    depends on how many of B's clusters the card holds at once).
+    `stage_bases` overrides where tier 1 reads the bases. Raises for a
+    design that cannot run."""
     from . import cuda_build
 
     lib = cuda_build.library("dense_forward")
     code = lib.allwave_dense_forward_design(K, l_pad, -1 if stage_bases is None else int(stage_bases))
     if code < 0:
         raise ValueError(f"no forward design for K={K} l_pad={l_pad} stage_bases={stage_bases}")
-    return ForwardDesign(code, code & 3, (code >> 2) & 63, (code >> 8) & 255,
-                         bool(code >> 16 & 1), bool(code >> 17 & 1))
+    if code & 3 != 3:
+        return ForwardDesign(code, code & 3, (code >> 2) & 63, (code >> 8) & 255,
+                             bool(code >> 16 & 1), 1, 0)
+    from .segmented import span_design
+
+    g = span_design(K, K, True, B, two_piece)
+    warps = g.blocks_per_pair * g.lanes_per_block // (32 * g.lanes_per_thread)
+    return ForwardDesign(code, 3, g.lanes_per_thread, warps, True, g.blocks_per_pair, g.code)
 
 
 def _check_cuda(name: str, t: torch.Tensor, dtype, shape) -> None:
@@ -485,8 +574,11 @@ def dense_forward(
     qs, ts, qlens, tlens, pen: Penalties, k_width: int, l_pad: int,
     stage_bases: Optional[bool] = None,
 ):
-    """Forward sweep: the plain version for CPU tensors, the
-    csrc/dense_forward.cu kernel for CUDA tensors. Same outputs as
+    """Forward sweep: the plain version for CPU tensors, the kernels for
+    CUDA tensors: tiers 1-2 csrc/dense_forward.cu's, tier 3 the replay
+    cluster of csrc/dense_span.cu over the full band from the origin
+    state, then the scores and certificates from its end state
+    (dense_forward.cu's `dense_forward_finish_kernel`). Same outputs as
     `dense_forward_ref`. `stage_bases` (None: the kernel's choice) is
     for measuring the two ways tier 1 reads the bases."""
     if _device_kind(qs) == "cpu":
@@ -502,34 +594,49 @@ def dense_forward(
     if K < 1 or l_pad < 1:
         raise ValueError(f"bad band width {K} or l_pad {l_pad}")
     dev = qs.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
     scores = torch.empty(B, dtype=torch.int32, device=dev)
     cert = torch.empty(B, dtype=torch.uint8, device=dev)
     planes = torch.empty((2 * l_pad, B, K), dtype=torch.uint16, device=dev)
-    design = forward_design(K, l_pad, stage_bases)
-    if design.scratch:
-        iscratch = torch.empty((B, 10, K), dtype=torch.int32, device=dev)
-        rscratch = torch.empty((B, 2, K), dtype=torch.uint8, device=dev)
-        iptr, rptr = iscratch.data_ptr(), rscratch.data_ptr()
-    else:
-        iptr = rptr = None
+    design = forward_design(K, l_pad, B, pen.two_piece, stage_bases)
     lib = cuda_build.library("dense_forward")
-    rc = lib.allwave_dense_forward(
-        qs.data_ptr(), ts.data_ptr(), qlens.data_ptr(), tlens.data_ptr(),
-        B, l_pad, K, pen.x, pen.o1, pen.e1, pen.o2, pen.e2,
-        int(pen.two_piece), design.code,
-        scores.data_ptr(), cert.data_ptr(), planes.data_ptr(), iptr, rptr,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    cuda_build.check(rc, "dense_forward kernel launch")
+    if design.tier == 3:
+        # the span's replay from d = 0 (a null state_in is the origin
+        # state), its plane rows the forward's, then the epilogue
+        state = torch.empty((5, B, K), dtype=torch.int32, device=dev)
+        rc = cuda_build.library("dense_span").allwave_dense_span(
+            qs.data_ptr(), ts.data_ptr(), qlens.data_ptr(), tlens.data_ptr(), None,
+            B, l_pad, K, K, 0, 2 * l_pad, pen.x, pen.o1, pen.e1, pen.o2, pen.e2,
+            int(pen.two_piece), 1, design.span_code, None, 0,
+            state.data_ptr(), state.stride(0), planes.data_ptr(), stream,
+        )
+        cuda_build.check(rc, "dense_forward tier-3 cluster launch")
+        rc = lib.allwave_dense_forward_finish(
+            qlens.data_ptr(), tlens.data_ptr(), B, l_pad, K, pen.o1, pen.e1, pen.o2, pen.e2,
+            int(pen.two_piece), state.data_ptr(), scores.data_ptr(), cert.data_ptr(), stream,
+        )
+        cuda_build.check(rc, "dense_forward epilogue launch")
+    else:
+        rc = lib.allwave_dense_forward(
+            qs.data_ptr(), ts.data_ptr(), qlens.data_ptr(), tlens.data_ptr(),
+            B, l_pad, K, pen.x, pen.o1, pen.e1, pen.o2, pen.e2,
+            int(pen.two_piece), design.code,
+            scores.data_ptr(), cert.data_ptr(), planes.data_ptr(), stream,
+        )
+        cuda_build.check(rc, "dense_forward kernel launch")
     forward_launches.launched((B, K, l_pad), design)
     return scores, cert.bool(), planes
 
 
-def dense_traceback(planes, scores, cert, qlens, tlens, run_cap: int):
+def dense_traceback(planes, scores, cert, qlens, tlens, run_cap: int, stats=None):
     """Traceback + packed result, (B, 32 + ceil(run_cap/4) + run_cap)
     uint8: the plain versions for CPU tensors, the
-    csrc/dense_traceback.cu kernel for CUDA tensors."""
+    csrc/dense_traceback.cu kernel for CUDA tensors. `stats` ((2, B)
+    int32, CUDA only) receives each pair's hops and round trips."""
     if _device_kind(planes) == "cpu":
+        if stats is not None:
+            raise ValueError("stats count a kernel's round trips: CUDA tensors only "
+                             "(dense_traceback_groups emulates them)")
         ops, lens, nruns, overflow = dense_traceback_ref(
             planes, scores, qlens, tlens, run_cap
         )
@@ -543,6 +650,8 @@ def dense_traceback(planes, scores, cert, qlens, tlens, run_cap: int):
     _check_cuda("tlens", tlens, torch.int32, (B,))
     cert_u8 = cert.to(torch.uint8).contiguous()
     _check_cuda("cert", cert_u8, torch.uint8, (B,))
+    if stats is not None:
+        _check_cuda("stats", stats, torch.int32, (2, B))
     if run_cap < 1:
         raise ValueError(f"bad run_cap {run_cap}")
     out = torch.empty(
@@ -552,7 +661,8 @@ def dense_traceback(planes, scores, cert, qlens, tlens, run_cap: int):
     rc = lib.allwave_dense_traceback(
         planes.data_ptr(), scores.data_ptr(), cert_u8.data_ptr(),
         qlens.data_ptr(), tlens.data_ptr(), B, D2, K, run_cap,
-        out.data_ptr(), torch.cuda.current_stream(planes.device).cuda_stream,
+        out.data_ptr(), None if stats is None else stats.data_ptr(),
+        torch.cuda.current_stream(planes.device).cuda_stream,
     )
     cuda_build.check(rc, "dense_traceback kernel launch")
     traceback_launches.launched((B, K, D2 // 2, run_cap))

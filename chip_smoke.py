@@ -5,21 +5,25 @@ Run from the repository root on a machine with one NVIDIA Hopper GPU:
 
     python3 chip_smoke.py
 
-It builds the nine CUDA kernel libraries from the sources in this
+It builds the ten CUDA kernel libraries from the sources in this
 checkout (one nvcc per source, all at once; phase 1 prints every dense
-forward and span kernel's registers and spill bytes from ptxas, fails
-if a register-band forward or replay kernel spills, and prints the
-opcodes of the cluster sweep's and the cluster replay's loops), drives
-the port's three engines and runs the probes:
+forward, traceback and span kernel's registers and spill bytes from
+ptxas, fails if a register-band forward or replay kernel or the
+traceback spills, and prints the opcodes of the cluster sweep's and the
+cluster replay's loops), drives the port's three engines and runs the
+probes:
 
 * the short-pair main path (phases 2-6): the dense forward and
   traceback kernels against their plain PyTorch versions (the forward
-  at every band rung of its three tiers, bands off the ladder, one- and
-  two-piece penalties, edge pairs, both ways tier 1 reads the bases,
-  with every plane entry held to the plain version's), the CLI and
-  the AllPairAligner over bench.py's headline data (128 x 1 kb at 2%
-  divergence, all 16,256 directed pairs) and a 12 kb escalation case,
-  then both kernels again at every shape those runs launched;
+  at every band rung of its three tiers, tier 3 -- the replay cluster
+  from the origin -- at every cluster size its dispatch takes, bands
+  off the ladder, one- and two-piece penalties, edge pairs, both ways
+  tier 1 reads the bases, with every plane entry held to the plain
+  version's; the traceback's rows, hops and round trips held to the
+  emulation of its schedule), the CLI and the AllPairAligner over
+  bench.py's headline data (128 x 1 kb at 2% divergence, all 16,256
+  directed pairs) and a 12 kb escalation case, then both kernels again
+  at every shape those runs launched;
 * the segmented long-pair path (phases 7-11): the span and
   segment-traceback kernels of the segmented (checkpoint-replay) dense
   engine against their plain versions, on checkpoints the span kernel
@@ -32,8 +36,11 @@ the port's three engines and runs the probes:
   re-queued at the full run cap): the router sends all 12 pairs to the
   wavefront engine, whose band ceiling hands every one back to the
   segmented engine (phase 9);
-  4 x 24 kb through both the one-shot dense engine and the segmented
-  engine, which must agree exactly (phase 10); and both kernels again
+  4 x 24 kb through both the one-shot dense engine (its rungs past 4096
+  run tier 3: the designs, launches and device time are printed) and
+  the segmented engine, which must agree exactly, then both dense
+  kernels against their plain versions at each tier-3 shape the one-shot
+  run launched, on its own pairs (phase 10); and both kernels again
   at every shape phase 9 launched (phase 11);
 * the wavefront long-pair path (phases 12-15): the wavefront span
   kernel (sweep with ring checkpoints, history replay at full band and
@@ -56,7 +63,9 @@ the port's three engines and runs the probes:
   shape where the plain version is quick, then every variant timed at
   the experiment's shape, as `python -m allwave_tpu_torch.probes` does;
   and the cluster sweep's barrier alone, timed in the sweep's launch
-  shape at every design phases 7 and 11 ran.
+  shape at every design phases 7 and 11 ran; and the latencies the
+  walks' chain bounds are made of (a dependent shared-memory load, an
+  ALU instruction, a device-memory load that misses L2).
 
 Each wrapper counts its launches by shape; every count is set to 0 just
 before a path is driven and read just after. Every kernel is held to its
@@ -158,6 +167,25 @@ def walk_row(stats_k, stats_e, ms, design) -> dict:
             "warps": design.warps}
 
 
+def traceback_stats(rows_k, stats_k, emulated, at) -> dict:
+    """The dense traceback's hops and round trips, from the kernel's
+    stats held equal (with its rows) to the emulation of its schedule;
+    and the 32-byte sectors its round trips touch as the emulation
+    models them (the distinct sectors of each round's cells; not read
+    from the card)."""
+    import torch
+
+    rows_e, stats_e = emulated
+    check(torch.equal(rows_k, rows_e), f"traceback rows differ from its schedule's emulation at {at}")
+    check(torch.equal(stats_k, stats_e[:2]), "traceback hops or round trips differ from its "
+          f"schedule's emulation at {at}")
+    hops, rounds, sectors = stats_e.cpu()
+    check(bool((rounds <= hops).all()), f"a walk took more round trips than hops at {at}")
+    return {"traceback_hops_max": int(hops.max()), "traceback_hops_sum": int(hops.sum()),
+            "traceback_rounds_max": int(rounds.max()), "traceback_rounds_sum": int(rounds.sum()),
+            "traceback_modeled_sectors": int(sectors.sum())}
+
+
 def timed_once(fn):
     """(fn(), milliseconds of that one call on the card)."""
     import torch
@@ -172,14 +200,18 @@ def timed_once(fn):
     return out, start.elapsed_time(end)
 
 
-def forward_case(device, scores_str, B, L, K, seed, div, reps, l_pad=None, run_cap=None):
-    """Both kernels against their plain versions at one shape: the
+def forward_case(device, scores_str, B, L, K, seed, div, reps, l_pad=None, run_cap=None,
+                 batch=None):
+    """Both kernels against their plain versions at one shape (on random
+    pairs of length ~L, or on `batch`, numpy (qs, ts, qlens, tlens)): the
     forward's scores, certificates and planes, and the packed bytes of
     the traceback kernel over either plane and of the plain walk + pack
-    over the plain plane. The plain forward is timed on the one call
-    that is checked. In tier 1 the forward also runs with its bases
-    read the other way (staged in shared memory or not), which must
-    give the same outputs, and is timed so. Returns a result dict."""
+    over the plain plane; the traceback's rows, hops and round trips
+    equal to the emulation of its schedule (`dense_traceback_groups`).
+    The plain forward is timed on the one call that is checked. In tier
+    1 the forward also runs with its bases read the other way (staged in
+    shared memory or not), which must give the same outputs, and is timed
+    so. Returns a result dict."""
     import numpy as np
     import torch
 
@@ -193,7 +225,8 @@ def forward_case(device, scores_str, B, L, K, seed, div, reps, l_pad=None, run_c
     l_pad = l_pad or 1 << max(L - 1, 1).bit_length()
     cap = run_cap or min(max(128, l_pad // 8), 2 * l_pad + 8)
     at = f"B={B} L={L} l_pad={l_pad} K={K} run_cap={cap}"
-    batch = random_batch(np.random.RandomState(seed), B, L, l_pad, div, min_len=(3 * L) // 4)
+    if batch is None:
+        batch = random_batch(np.random.RandomState(seed), B, L, l_pad, div, min_len=(3 * L) // 4)
     qs, ts, ql, tl = (torch.from_numpy(a).to(device) for a in batch)
     s_k, c_k, p_k = D.dense_forward(qs, ts, ql, tl, pen, K, l_pad)
     (s_p, c_p, p_p), plain_ms = timed_once(
@@ -203,20 +236,22 @@ def forward_case(device, scores_str, B, L, K, seed, div, reps, l_pad=None, run_c
     check(torch.equal(c_k, c_p), f"forward certs differ at {at}")
     check(torch.equal(p_k, p_p), f"forward planes differ at {at}")
     plane_err = int((p_k.to(torch.int32) - p_p.to(torch.int32)).abs().max())
-    t_k = D.dense_traceback(p_k, s_k, c_k, ql, tl, cap)
+    tb_stats = torch.zeros((2, B), dtype=torch.int32, device=device)
+    t_k = D.dense_traceback(p_k, s_k, c_k, ql, tl, cap, stats=tb_stats)
     t_kp = D.dense_traceback(p_p, s_p, c_p, ql, tl, cap)
     check(torch.equal(t_k, t_kp), f"traceback over the two planes differs at {at}")
     t_p, tb_plain_ms = timed_once(
         lambda: D.pack_alignments(s_p, c_p, *D.dense_traceback_ref(p_p, s_p, ql, tl, cap))
     )
     check(torch.equal(t_k, t_p), f"traceback kernel and plain walk differ at {at}")
+    tb = traceback_stats(t_k, tb_stats, D.dense_traceback_groups(p_k, s_k, c_k, ql, tl, cap), at)
     del p_p, t_kp
-    design = D.forward_design(K, l_pad)
+    design = D.forward_design(K, l_pad, B, pen.two_piece)
     other_ms = None
     if design.tier == 1:
         other = not design.stage_bases
         try:
-            D.forward_design(K, l_pad, other)
+            D.forward_design(K, l_pad, B, pen.two_piece, other)
         except ValueError:  # the tables do not fit shared memory
             other = None
         if other is not None:
@@ -226,7 +261,8 @@ def forward_case(device, scores_str, B, L, K, seed, div, reps, l_pad=None, run_c
             del s_o, c_o, p_o
             other_ms = time_ms(lambda: D.dense_forward(qs, ts, ql, tl, pen, K, l_pad, other), reps)
     ms = time_ms(lambda: D.dense_forward(qs, ts, ql, tl, pen, K, l_pad), reps)
-    tb_ms = time_ms(lambda: D.dense_traceback(p_k, s_k, c_k, ql, tl, cap), reps)
+    # the traceback is shorter than its wrapper's host time: queued behind a sleep
+    tb_ms = time_calls_ms(D.dense_traceback, [(p_k, s_k, c_k, ql, tl, cap)] * (reps + 1))
     cells = B * 2 * l_pad * K
     _, k0, _ = D.band_geometry(ql, tl, K)
     active = active_cells(ql.cpu().numpy(), tl.cpu().numpy(), k0.cpu().numpy(), K, 0, 2 * l_pad)
@@ -234,14 +270,14 @@ def forward_case(device, scores_str, B, L, K, seed, div, reps, l_pad=None, run_c
         "scores": scores_str, "B": B, "L": L, "l_pad": l_pad, "K": K, "run_cap": cap,
         "certified": int(c_k.sum()), "tier": design.tier,
         "lanes_per_thread": design.lanes_per_thread, "warps_per_pair": design.warps_per_pair,
-        "stage_bases": design.stage_bases, "scratch": design.scratch,
+        "stage_bases": design.stage_bases, "blocks_per_pair": design.blocks_per_pair,
         "max_abs_err": max(int((s_k - s_p).abs().max()), plane_err,
                            int((t_k.to(torch.int32) - t_p.to(torch.int32)).abs().max())),
         "tolerance": 0, "ms": ms, "plain_ms": plain_ms, "other_bases_ms": other_ms,
         "gcells_s": cells / (ms * 1e6), "plain_gcells_s": cells / (plain_ms * 1e6),
         "traceback_ms": tb_ms, "traceback_plain_ms": tb_plain_ms,
         "active_cells": active, "runs": int(t_k[:, :32].contiguous().view(torch.int32)[:, 1].sum()),
-        "traceback_out_bytes": t_k.numel(),
+        "traceback_out_bytes": t_k.numel(), **tb,
     }
 
 
@@ -260,17 +296,21 @@ def forward_tier_case(device, scores_str, B, K, l_pad, seed, stage_bases=None):
     pen = resolve_penalties(parse_scores(scores_str))
     batch = edge_batch(np.random.RandomState(seed), B, l_pad, K)
     qs, ts, ql, tl = (torch.from_numpy(a).to(device) for a in batch)
-    design = D.forward_design(K, l_pad, stage_bases)
+    design = D.forward_design(K, l_pad, B, pen.two_piece, stage_bases)
+    D.forward_launches.reset()
     s_k, c_k, p_k = D.dense_forward(qs, ts, ql, tl, pen, K, l_pad, stage_bases)
+    check(D.forward_launches.designs == {(B, K, l_pad): design},
+          f"the forward at K={K} did not launch its dispatch's design {design}")
     s_p, c_p, p_p = D.dense_forward_ref(qs, ts, ql, tl, pen, K, l_pad)
     at = f"{scores_str} B={B} K={K} l_pad={l_pad} design={design}"
     check(torch.equal(s_k, s_p), f"forward scores differ at {at}")
     check(torch.equal(c_k, c_p), f"forward certs differ at {at}")
     check(torch.equal(p_k, p_p), f"forward planes differ at {at}")
     return {
-        "scores": scores_str, "B": B, "K": K, "l_pad": l_pad, "tier": design.tier,
-        "lanes_per_thread": design.lanes_per_thread, "warps_per_pair": design.warps_per_pair,
-        "stage_bases": design.stage_bases, "scratch": design.scratch,
+        "scores": scores_str, "two_piece": pen.two_piece, "B": B, "K": K, "l_pad": l_pad,
+        "tier": design.tier, "lanes_per_thread": design.lanes_per_thread,
+        "warps_per_pair": design.warps_per_pair, "stage_bases": design.stage_bases,
+        "blocks_per_pair": design.blocks_per_pair, "band_edge_pairs": int(((ql - tl).abs() == K - 1).sum()),
         "infeasible": int((s_k >= D.INF).sum()), "certified": int(c_k.sum()),
         "max_abs_err": max(int((s_k - s_p).abs().max()),
                            int((p_k.to(torch.int32) - p_p.to(torch.int32)).abs().max())),
@@ -295,17 +335,20 @@ def traceback_case(device, B, L, K, seed, div, run_caps, reps):
     s, c, p = D.dense_forward(qs, ts, ql, tl, pen, K, l_pad)
     out = []
     for cap in run_caps:
-        k = D.dense_traceback(p, s, c, ql, tl, cap)
+        stats = torch.zeros((2, B), dtype=torch.int32, device=device)
+        k = D.dense_traceback(p, s, c, ql, tl, cap, stats=stats)
         ref, plain_ms = timed_once(
             lambda: D.pack_alignments(s, c, *D.dense_traceback_ref(p, s, ql, tl, cap))
         )
         check(torch.equal(k, ref), f"traceback bytes differ at run_cap={cap}")
+        tb = traceback_stats(k, stats, D.dense_traceback_groups(p, s, c, ql, tl, cap),
+                             f"run_cap={cap}")
         overflowed = int(k[:, 12:16].contiguous().view(torch.int32).sum())
         diff = int((k.to(torch.int32) - ref.to(torch.int32)).abs().max())
-        ms = time_ms(lambda: D.dense_traceback(p, s, c, ql, tl, cap), reps)
+        ms = time_calls_ms(D.dense_traceback, [(p, s, c, ql, tl, cap)] * (reps + 1))
         out.append({
             "B": B, "L": L, "K": K, "run_cap": cap, "overflowed": overflowed,
-            "max_abs_err": diff, "tolerance": 0, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": diff, "tolerance": 0, "ms": ms, "plain_ms": plain_ms, **tb,
         })
     return out
 
@@ -719,15 +762,38 @@ def profile_pipeline(seqs, scores_str):
             busy_us += b - end
             end = b
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
-    forward_ms = sum(v for k, v in by_name.items() if "dense_forward" in k)
+    forward_ms, tier3_ms = forward_device_ms(spans)
     return {
         "pairs": len(res), "wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
-        "dp_cells": cells, "forward_device_ms": forward_ms,
+        "dp_cells": cells, "forward_device_ms": forward_ms, "tier3_device_ms": tier3_ms,
+        "traceback_device_ms": sum(v for k, v in by_name.items() if "dense_traceback" in k),
         "forward_gcells_s": cells / (forward_ms * 1e6) if forward_ms else None,
         "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms,
         "peak_device_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "device_ms_by_kernel": {_short(k): v for k, v in top},
     }
+
+
+def forward_device_ms(spans):
+    """(all the dense forward's device ms, its tier 3's) over profiled
+    device spans (start us, end us, kernel name): tiers 1-2 and tier 3's
+    epilogue by name; tier 3's replay cluster, which the segmented engine
+    launches too, where the forward's epilogue is the next span on the
+    card (the wrapper launches the two back to back on one stream)."""
+    spans = sorted(spans)
+    names = [_short(n) for _, _, n in spans]
+    forward_us = tier3_us = 0.0
+    for i, (a, b, _) in enumerate(spans):
+        name = names[i]
+        if name.startswith("dense_replay_cluster_kernel"):
+            if i + 1 < len(spans) and names[i + 1].startswith("dense_forward_finish_kernel"):
+                forward_us += b - a
+                tier3_us += b - a
+        elif name.startswith("dense_forward"):
+            forward_us += b - a
+            if name.startswith("dense_forward_finish_kernel"):
+                tier3_us += b - a
+    return forward_us / 1e3, tier3_us / 1e3
 
 
 def _short(kernel_name: str) -> str:
@@ -812,6 +878,14 @@ def main() -> int:
                        for u in regs.values()),
           f"a register-band forward kernel spills: {regs}")
     report["forward_ptxas"] = {_short(fn): u for fn, u in usage.items()}
+    # the traceback: a warp a pair, its walker state and open run in
+    # registers; none may spill
+    tb_usage = cuda_build.ptxas_usage("dense_traceback")
+    for fn, u in sorted(tb_usage.items()):
+        print("phase 1 ptxas: " + json.dumps({"kernel": _short(fn), **u}), flush=True)
+    check(tb_usage and all(u.get("spill_stores", 1) == 0 for u in tb_usage.values()),
+          f"the traceback kernel spills: {tb_usage}")
+    report["traceback_ptxas"] = {_short(fn): u for fn, u in tb_usage.items()}
     span_usage = cuda_build.ptxas_usage("dense_span")
     for fn, u in sorted(span_usage.items()):
         print("phase 1 ptxas: " + json.dumps({"kernel": _short(fn), **u}), flush=True)
@@ -863,6 +937,9 @@ def main() -> int:
           and any(op.startswith("VOTE") for r in wf_loops for op in r["ops"]),
           "the wavefront span's loops divide, or keep their rings out of shared memory, "
           "or extend without warp votes")
+    # the dense traceback's loops: the walk's hop loop is its longest
+    for r in SA.report(["dense_traceback"]):
+        print("phase 1 dense_traceback loop: " + json.dumps(r), flush=True)
     hop_chains = {}
     # the two walks: registers and spills, and their loops (the walker's
     # hops read tiles from shared memory: LDS; the producers copy them
@@ -895,26 +972,45 @@ def main() -> int:
     for sc in (SCORES, "0,5,8,2", "0,1,1,1"):
         fwd.append(forward_case(dev, sc, B=256, L=1024, K=128, seed=1, div=0.02, reps=5))
     fwd.append(forward_case(dev, SCORES, B=8, L=4096, K=3072, seed=2, div=0.02, reps=2))
-    # tier 3 with its bands in the global scratch
+    # tier 3, the replay cluster from the origin: the kernel line's shape
     fwd.append(forward_case(dev, SCORES, B=4, L=2048, K=6144, seed=3, div=0.05, reps=2))
-    # every rung of tiers 1 and 2 and a tier-3 rung, bands off the ladder
-    # (201 stores its plane a lane at a time; 4500 keeps tier 3's bands
-    # in shared memory), one- and two-piece
-    # penalties, both ways of reading the bases, on edge pairs (|k_end|
-    # = K - 1 where l_pad allows) in batches of 7 (not a multiple of
-    # the 4 pairs a tier-1 block runs)
+    # every rung of the three tiers, bands off the ladder (201 stores its
+    # plane a lane at a time; 4500 and the odd 4501 are tier 3's
+    # narrowest clusters), one- and two-piece penalties, both ways of
+    # reading the bases, on edge pairs (|k_end| = K - 1 where l_pad
+    # allows: every band to 1024, and tier 3 at 4500) in batches
+    # of 7 (not a multiple of the 4 pairs a tier-1 block runs); and the
+    # widest rung at B = 64, more clusters of 16 blocks than the card
+    # holds at once, so it spreads over the portable 8
+    from allwave_tpu_torch.wfa import segmented as TS
     from allwave_tpu_torch.wfa.dense_engine import DenseBandAligner
 
-    tier_cases = [(SCORES, K, None) for K in DenseBandAligner.K_LADDER if K <= 6144]
-    tier_cases += [("0,5,8,2", K, None) for K in (100, 192, 201, 1000, 3072, 4500)]
-    tier_cases += [("0,1,1,1", 192, None), (SCORES, 192, False), (SCORES, 384, False),
-                   ("0,5,8,2", 256, False)]
+    tier_cases = [(SCORES, K, None, 7) for K in DenseBandAligner.K_LADDER]
+    tier_cases += [("0,5,8,2", K, None, 7) for K in (100, 192, 201, 1000, 3072, 4500, 4501)]
+    tier_cases += [("0,1,1,1", 192, None, 7), (SCORES, 192, False, 7), (SCORES, 384, False, 7),
+                   ("0,5,8,2", 256, False, 7), (SCORES, 16384, None, 64)]
     tiers = []
-    for i, (sc, K, stage) in enumerate(tier_cases):
+    for i, (sc, K, stage, B2) in enumerate(tier_cases):
         l_pad = 256 if K <= 256 else (K if K <= 1024 else 512)
-        tiers.append(forward_tier_case(dev, sc, B=7, K=K, l_pad=l_pad, seed=20 + i,
+        if K == 4500:
+            l_pad = 4608  # room for |k_end| = K - 1
+        if B2 > 7:
+            l_pad = 128
+        tiers.append(forward_tier_case(dev, sc, B=B2, K=K, l_pad=l_pad, seed=20 + i,
                                        stage_bases=stage))
     check({r["tier"] for r in tiers} == {1, 2, 3}, "phase 2 did not run all three tiers")
+    tier3 = [r for r in tiers if r["tier"] == 3]
+    check({r["K"] for r in tier3} >= {4500, 6144, 8192, 12288, 16384}
+          and all(r["band_edge_pairs"] > 0 for r in tier3 if r["K"] == 4500),
+          "phase 2 did not run every tier-3 rung, or no band-edge pair at 4500")
+    # every cluster size the span's dispatch chooses for these shapes ran,
+    # above the portable 8 and at it
+    sizes2 = {r["blocks_per_pair"] for r in tier3}
+    chosen2 = {TS.span_design(r["K"], r["K"], True, r["B"], r["two_piece"]).blocks_per_pair
+               for r in tier3}
+    check(sizes2 == chosen2 and 8 in sizes2 and max(sizes2) > 8,
+          f"phase 2 did not run every cluster size of tier 3: ran {sorted(sizes2)}, "
+          f"chosen {sorted(chosen2)}")
     fwd += tiers
     for r in fwd:
         print("phase 2 forward: " + json.dumps(r), flush=True)
@@ -1224,6 +1320,11 @@ def main() -> int:
     one = UnifiedAligner(pen, dense_max_len=32768, device=dev).align_pairs(pairs24, with_stats=True)
     one_s = time.perf_counter() - t0
     one_k, one_spans = D.forward_launches.widest_k, TS.span_launches.count
+    # the one-shot forward's designs: its rungs past 4096 run tier 3
+    designs10 = dict(D.forward_launches.designs)
+    tier3_10 = {s: g for s, g in designs10.items() if g.tier == 3}
+    launches_t3 = sum(D.forward_launches.shapes[s] for s in tier3_10)
+    check(launches_t3 > 0, f"the one-shot 24 kb run launched no tier-3 forward: {designs10}")
     t0 = time.perf_counter()
     segd = UnifiedAligner(pen, device=dev).align_pairs(pairs24, with_stats=True)
     seg_s = time.perf_counter() - t0
@@ -1234,11 +1335,47 @@ def main() -> int:
     same = [a[0] == b[0] and np.array_equal(a[1], b[1]) for a, b in zip(one[0], segd[0])]
     check(all(same), f"one-shot and segmented differ on {same.count(False)} of 12 pairs")
     check(np.array_equal(one[1], segd[1]), "one-shot and segmented stats differ")
+    # the one-shot run again under the profiler: tier 3's device time (the
+    # replay cluster and its epilogue; no segmented span runs here)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof10:
+        UnifiedAligner(pen, dense_max_len=32768, device=dev).align_pairs(pairs24, with_stats=True)
+        torch.cuda.synchronize()
+    spans10 = [(e.time_range.start, e.time_range.end, e.name) for e in prof10.events()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    forward10_ms, tier3_ms = forward_device_ms(spans10)
+    # tier 3 against the plain forward at each (K, l_pad) it ran here, at
+    # the widest batch it ran with, on this phase's own pairs: planes of
+    # gigabytes (byte offsets past 2^31), 2 l_pad steps and every
+    # restaging of the base tables
+    widest10 = {}
+    for (B10, K10, lp10) in tier3_10:
+        widest10[(K10, lp10)] = max(B10, widest10.get((K10, lp10), 0))
+    t3_len = []
+    for (K10, lp10), B10 in sorted(widest10.items()):
+        qs10 = np.zeros((B10, lp10), np.uint8)
+        ts10 = np.zeros((B10, lp10), np.uint8)
+        for b, (q, t) in enumerate(pairs24[:B10]):
+            qs10[b, :len(q)] = np.frombuffer(q, np.uint8)
+            ts10[b, :len(t)] = np.frombuffer(t, np.uint8)
+        lens10 = [np.array([len(p[i]) for p in pairs24[:B10]], np.int32) for i in (0, 1)]
+        r = forward_case(dev, SCORES, B=B10, L=24_000, K=K10, seed=0, div=0.02, reps=2,
+                         l_pad=lp10, batch=(qs10, ts10, *lens10))
+        check(r["tier"] == 3, f"phase 10's shape {(B10, K10, lp10)} did not run tier 3")
+        print("phase 10 tier-3 shape: " + json.dumps(r), flush=True)
+        t3_len.append(r)
     p10 = {
         "pairs": len(pairs24), "identical": sum(same), "one_shot_s": one_s,
+        "one_shot_forward_designs": [[*sh, g.tier, g.blocks_per_pair, g.lanes_per_thread,
+                                      g.warps_per_pair] for sh, g in sorted(designs10.items())],
+        "tier3_launches": launches_t3, "tier3_device_ms": tier3_ms if spans10 else None,
+        "one_shot_forward_device_ms": forward10_ms if spans10 else None,
         "one_shot_widest_k": one_k, "segmented_s": seg_s,
         "segmented_widest_k": TS.span_launches.widest_k,
         "scores": [int(r[0]) for r in segd[0]],
+        "tier3_at_length": [{k: r[k] for k in ("B", "K", "l_pad", "blocks_per_pair", "max_abs_err",
+                                               "ms", "plain_ms")} for r in t3_len],
     }
     print("phase 10 exactness at length: " + json.dumps(p10), flush=True)
     report["exactness_24kb"] = p10
@@ -1629,11 +1766,32 @@ def main() -> int:
     # to the next, read off this build's machine code by
     # `probes.sass.hop_chain`), at the latencies one thread's dependent
     # chains of each take on this card (csrc/probe_latency.cu)
-    from allwave_tpu_torch.probes.latency import walk_latency_ns
+    from allwave_tpu_torch.probes.latency import dram_ns, walk_latency_ns
 
     lat16 = walk_latency_ns(dev)
+    # the dense traceback's round trips each wait on a device-memory load
+    # that misses L2 (its plane is gigabytes): one thread's dependent
+    # chain of such loads
+    lat16["dram_ns"] = dram_ns(dev)
     print("phase 16 walk latency: " + json.dumps(lat16), flush=True)
     report["walk_latency_ns"] = lat16
+    # the dense traceback at the headline: its longest walker's round
+    # trips, one after another, beside the bytes bound; and the sectors
+    # its round trips touch, as the emulation models them
+    tb_bound.update({
+        "chain_bound_ms": head["traceback_rounds_max"] * lat16["dram_ns"] * 1e-6,
+        "rounds_max": head["traceback_rounds_max"], "hops_max": head["traceback_hops_max"],
+        "rounds_sum": head["traceback_rounds_sum"], "hops_sum": head["traceback_hops_sum"],
+        "modeled_sectors": head["traceback_modeled_sectors"],
+        "modeled_bytes": 32 * head["traceback_modeled_sectors"],
+    })
+    # tier 3 at its kernel-line shape (phase 2), beside its own bound;
+    # and at the widest shape the main path launched it (phase 10)
+    t3 = next(r for r in fwd if r["tier"] == 3 and "ms" in r)
+    t3_bound = fwd_bound_of(t3)
+    t3_long = max(t3_len, key=lambda r: (r["l_pad"] * r["B"] * r["K"]))
+    t3_at_length = {"shape": [t3_long["B"], t3_long["K"], t3_long["l_pad"]],
+                    "ms": t3_long["ms"], "plain_ms": t3_long["plain_ms"], **fwd_bound_of(t3_long)}
 
     def chain_bound(r, chain):
         hop_ns = chain["loads"] * lat16["lds_ns"] + chain["alu"] * lat16["alu_ns"]
@@ -1644,13 +1802,24 @@ def main() -> int:
 
     kernels = [
         {
-            "name": "dense_forward", "route": "cuda",
+            "name": "dense_forward", "route": "cuda", "tiers": [1, 2],
             "source": "allwave_tpu_torch/csrc/dense_forward.cu",
             "replaces": "allwave_tpu/wfa/pallas_dense.py:1206 (_forward_t); "
                         "allwave_tpu/wfa/pallas_dense.py:1390 (_forward_c2)",
             "launches": launches["dense_forward"],
             "max_abs_err": max(r["max_abs_err"] for r in fwd + at_shape),
             "ms": head["ms"], "plain_ms": head["plain_ms"], **fwd_bound,
+        },
+        {
+            "name": "dense_forward_tier3", "route": "cuda",
+            "source": "allwave_tpu_torch/csrc/dense_span.cu",
+            "epilogue": "allwave_tpu_torch/csrc/dense_forward.cu (dense_forward_finish_kernel)",
+            "replaces": "allwave_tpu/wfa/pallas_dense.py:1390 (_forward_c2, K > 4096)",
+            "launches": launches_t3, "shape": [t3["B"], t3["K"], t3["l_pad"]],
+            "blocks_per_pair": t3["blocks_per_pair"],
+            "max_abs_err": max(r["max_abs_err"] for r in fwd + t3_len if r["tier"] == 3),
+            "ms": t3["ms"], "plain_ms": t3["plain_ms"], **t3_bound,
+            "at_length": t3_at_length,
         },
         {
             "name": "dense_traceback", "route": "cuda",

@@ -32,8 +32,8 @@ def cuda_device():
 
 
 #: (K, tier) for every band rung of the engine up to a tier-3 one, and
-#: bands off the ladder (201: odd, a lane a store; 4500: tier 3 with its
-#: bands in shared memory)
+#: bands off the ladder (201: odd, a lane a store; 4500: tier 3's
+#: narrowest cluster)
 FORWARD_BANDS = [(128, 1), (192, 1), (256, 1), (320, 1), (384, 1), (512, 2), (768, 2),
                  (1024, 2), (1536, 2), (2048, 2), (3072, 2), (4096, 2), (6144, 3),
                  (100, 1), (200, 1), (201, 1), (1000, 2), (4500, 3)]
@@ -71,12 +71,23 @@ def test_forward_kernel_matches_plain(cuda_device, scores_str, K, l_pad, div):
 @pytest.mark.parametrize("K,tier", FORWARD_BANDS)
 def test_forward_design(cuda_device, K, tier):
     """The C dispatch's tier for each band, recorded beside the launch's
-    shape; tier 1 reads its bases both ways with the same outputs, tier
-    2 only from staged tables; K = 192 runs a warp a pair."""
+    shape; tier 1 reads its bases both ways with the same outputs, tiers
+    2 and 3 only from staged tables; K = 192 runs a warp a pair; tier 3
+    runs the span's replay cluster over the full band (its design from
+    the span's dispatch), with no band in device memory."""
+    from allwave_tpu_torch.wfa import segmented as TS
+
     l_pad = 128
-    design = TD.forward_design(K, l_pad)
-    assert design.tier == tier and design.scratch == (tier == 3 and 42 * K > 200 * 1024)
+    design = TD.forward_design(K, l_pad, 6, True)
+    assert design.tier == tier and (tier == 1 or design.stage_bases)
     assert (design.warps_per_pair == 1) == (tier == 1)
+    if tier == 3:
+        span = TS.span_design(K, K, True, 6, True)
+        assert design.span_code == span.code and design.blocks_per_pair == span.blocks_per_pair > 1
+        assert design.lanes_per_thread == span.lanes_per_thread
+        assert design.warps_per_pair * 32 * span.lanes_per_thread >= K
+    else:
+        assert design.blocks_per_pair == 1 and design.span_code == 0
     if K == 192:
         assert (design.lanes_per_thread, design.warps_per_pair) == (6, 1)
     pen = resolve_penalties(parse_scores("0,5,8,2,24,1"))
@@ -88,9 +99,9 @@ def test_forward_design(cuda_device, K, tier):
     out = TD.dense_forward(qs, ts, ql, tl, pen, K, l_pad)
     assert TD.forward_launches.designs == {(6, K, l_pad): design}
     for stage in (False, True):
-        if (tier, stage) in ((2, False), (3, True)):
+        if tier > 1 and not stage:
             with pytest.raises(ValueError):
-                TD.forward_design(K, l_pad, stage)
+                TD.forward_design(K, l_pad, 6, True, stage)
             continue
         other = TD.dense_forward(qs, ts, ql, tl, pen, K, l_pad, stage_bases=stage)
         assert all(torch.equal(a, b) for a, b in zip(out, other))
@@ -109,6 +120,70 @@ def test_traceback_kernel_matches_plain(cuda_device, run_cap):
     torch.cuda.synchronize()
     ref = TD.pack_alignments(s, c, *TD.dense_traceback_ref(p, s, ql, tl, run_cap))
     assert torch.equal(out, ref)
+
+
+#: tier 3 at every cluster size its dispatch takes on an H100: (K, B,
+#: l_pad, scores, edge pairs). 4500 (off the ladder) and 4501 (odd) the
+#: narrowest clusters, with |k_end| = K - 1 where l_pad allows; the rungs
+#: 6144 .. 16384 at B = 7; 16384 at B = 64, more clusters of 16 blocks
+#: than the card holds at once: 8 blocks of 8 lanes a thread
+TIER3_CASES = [(4500, 7, 4608, "0,5,8,2,24,1", True), (4501, 7, 256, "0,4,6,2", False),
+               (6144, 7, 256, "0,5,8,2,24,1", True), (8192, 7, 256, "0,5,8,2", False),
+               (12288, 7, 256, "0,5,8,2,24,1", False), (16384, 7, 256, "0,5,8,2,24,1", True),
+               (16384, 64, 128, "0,5,8,2,24,1", False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,B,l_pad,scores_str,edge", TIER3_CASES)
+def test_forward_tier3_clusters_match_plain(cuda_device, K, B, l_pad, scores_str, edge):
+    """Tier 3 (the replay cluster from the origin, then the epilogue):
+    scores, certificates and every plane entry equal the plain
+    forward's, at the cluster the span's dispatch takes for B pairs."""
+    from allwave_tpu_torch.wfa import segmented as TS
+
+    pen = resolve_penalties(parse_scores(scores_str))
+    rng = np.random.RandomState(K + B)
+    if edge:
+        batch = edge_batch(rng, B, l_pad, K, 0.05)
+    else:
+        batch = random_batch(rng, B, (3 * l_pad) // 4, l_pad, 0.1)
+    qs, ts, ql, tl = (torch.from_numpy(a).to(cuda_device) for a in batch)
+    TD.forward_launches.reset()
+    s_k, c_k, p_k = TD.dense_forward(qs, ts, ql, tl, pen, K, l_pad)
+    torch.cuda.synchronize()
+    design = TD.forward_launches.designs[(B, K, l_pad)]
+    span = TS.span_design(K, K, True, B, pen.two_piece)
+    assert design.tier == 3 and design.blocks_per_pair == span.blocks_per_pair
+    if B == 64:
+        assert (design.blocks_per_pair, design.lanes_per_thread) == (8, 8)
+    s_p, c_p, p_p = TD.dense_forward_ref(qs, ts, ql, tl, pen, K, l_pad)
+    assert torch.equal(s_k, s_p) and torch.equal(c_k, c_p)
+    assert torch.equal(p_k, p_p)
+    if edge and l_pad >= K:
+        assert bool((ql - tl).abs().eq(K - 1).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("run_cap", [128, 48, 37, 4, 190000])
+def test_traceback_stats_match_group_emulation(cuda_device, run_cap):
+    """The kernel's rows, hops and round trips equal the emulation of its
+    schedule (dense_traceback_groups) on the same plane: rows written out
+    16, 4 or 1 bytes a lane (caps 128, 48, 37), an overflow (4), and rows
+    too large for shared memory written in place (190000)."""
+    pen = resolve_penalties(parse_scores("0,5,8,2,24,1"))
+    rng = np.random.RandomState(run_cap)
+    edge = edge_batch(rng, 7, 256, 192, 0.03)
+    rand = random_batch(rng, 6, 240, 256, 0.03)
+    qs, ts, ql, tl = (torch.from_numpy(np.concatenate([a, b])).to(cuda_device)
+                      for a, b in zip(edge, rand))
+    s, c, p = TD.dense_forward(qs, ts, ql, tl, pen, 192, 256)
+    stats = torch.zeros((2, 13), dtype=torch.int32, device=cuda_device)
+    out = TD.dense_traceback(p, s, c, ql, tl, run_cap, stats=stats)
+    torch.cuda.synchronize()
+    rows, emul = TD.dense_traceback_groups(p, s, c, ql, tl, run_cap)
+    assert torch.equal(out, rows)
+    assert torch.equal(stats, emul[:2])
+    assert bool((stats[1] <= stats[0]).all()) and int(stats[1].sum()) < int(stats[0].sum())
 
 
 @pytest.mark.cuda

@@ -417,3 +417,13 @@ def test_entry_point_needs_cuda_unless_cpu_is_asked():
     assert sum(line.startswith("x4 ") for line in lines) == len(K6.VARIANTS)
     assert sum(line.startswith("x2 ") for line in lines) == len(K2.CASES)
     assert lines[-1].startswith("cpu")
+
+
+@pytest.mark.parametrize("probe", ["walk_latency_ns", "dram_ns"])
+def test_latency_probes_refuse_the_cpu(probe):
+    """The latency probes time the card: asked for the CPU they raise
+    before building anything."""
+    from allwave_tpu_torch.probes import latency
+
+    with pytest.raises(ValueError, match="CUDA card"):
+        getattr(latency, probe)("cpu")
