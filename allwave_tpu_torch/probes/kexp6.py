@@ -11,19 +11,25 @@ and lane K-1, as `step_math` masks them.
 
 The step is defined once here and shared by x5 (`kexp7`) and x6
 (`kexp8`): `step_terms` is the recurrence, `step_ref` one step of the
-plain version, `launch_smem` the shared-memory kernel of
-csrc/probe_step.cu that all three drive.
+plain version, `launch_regs` the register kernel of csrc/probe_step.cu
+that v1-v4 and every x5 and x6 variant run, `launch_smem` v0's kernel.
 
-Variants, and what each means on Hopper (csrc/probe_step.cu):
+Variants, and what each means on Hopper (csrc/probe_step.cu). Neither
+kernel computes the lanes that do not move at a step (only d's parity
+does):
 
-* v0: the state in scratch, 2 steps a loop turn. Bands in shared
-  memory, double-buffered, one `__syncthreads` a step: how
-  csrc/dense_forward.cu and csrc/dense_span.cu work.
+* v0: the state in scratch, 2 steps a loop turn. One block a problem,
+  one thread a lane of the moving parity; the five bands parity-packed
+  in shared memory and updated in place (the moving parity reads only
+  the other one), one `__syncthreads` a step. The segmented engine's
+  sweep (csrc/dense_span.cu, `dense_sweep_cluster_kernel`) keeps its
+  bands the same way, across a cluster.
 * v1, v2, v3: the state carried as values, unroll 2, 4, 8. Each thread
-  keeps K/256 adjacent lanes of all five bands in registers; the
-  neighbours at k-1 and k+1 come by `__shfl_up_sync`/`__shfl_down_sync`
-  and, at warp edges, from a double-buffered halo in shared memory
-  (one barrier a step). The step loop is unrolled 2, 4 or 8 times.
+  keeps K/256 adjacent lanes of all five bands in registers and
+  computes the moving ones; a step's neighbours come by one direction
+  of `__shfl_up_sync`/`__shfl_down_sync` and, at warp edges, from a
+  double-buffered halo in shared memory (one barrier a step), as in
+  csrc/dense_forward.cu's tiers 1-2 and dense_span.cu's replay.
 * v4: v1 with two problems interleaved in one block (the second starts
   from s_in + 1); the result is the sum of their S bands.
 
@@ -70,8 +76,34 @@ FILL_SCRATCH = -(2**31)
 #: not counted: the bound is the least work, not the kernel's.
 STEP_OPS = 9
 
-#: one launch per call of the step kernel (x4, x5, x6)
+#: one launch per call of the step kernel (x4, x5, x6); each shape's
+#: design is the kernel it ran (SMEM_KERNEL, or `regs_kernel`'s name)
 step_launches = LaunchCount()
+
+#: the register kernel: 256 threads a problem, LPT = K / 256 lanes a
+#: thread, for these LPT
+REG_THREADS = 256
+REG_LPT = (1, 2, 4, 6, 8)
+#: v0's kernel: one thread a lane pair, at most 1024 threads
+SMEM_KERNEL = "step_smem_kernel"
+SMEM_MAX_K = 2048
+
+
+def regs_kernel(k: int, unroll: int = 2, copies: int = 1, plane: int = 0) -> str:
+    """The register kernel's instantiation that runs band K at this
+    unroll, copies and plane mode: `step_regs_kernel<LPT, UNROLL,
+    COPIES, PLANE>`."""
+    if k % REG_THREADS or k // REG_THREADS not in REG_LPT:
+        raise ValueError(f"the register kernel takes K = 256 * {REG_LPT}, not {k}")
+    return f"step_regs_kernel<{k // REG_THREADS}, {unroll}, {copies}, {plane}>"
+
+
+def block_threads(kernel: str, k: int) -> int:
+    """Threads a block of `kernel` runs at band K: a thread a lane pair
+    (v0's, in whole warps) or 256."""
+    if kernel == SMEM_KERNEL:
+        return -(-((k + 1) // 2) // 32) * 32
+    return REG_THREADS
 
 
 @dataclass(frozen=True)
@@ -226,23 +258,50 @@ def work(variant: str, tb: int = TB, k: int = K, nsteps: int = NSTEPS):
     return copies * tb * active_lane_steps(k, nsteps) * STEP_OPS, 4 * tb * k * 4
 
 
+def kernel_for(variant: str, k: int) -> str:
+    """The csrc/probe_step.cu kernel an x4 variant runs at band K."""
+    v = VARIANTS[variant]
+    return SMEM_KERNEL if v.smem else regs_kernel(k, v.unroll, v.copies)
+
+
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def launch_smem(qb0, tb0, s_in, w: int, fill: int, n0: int, n_steps: int, *, chunk=None,
-                state=None, base=None, sout=None, sout_every=False, sout_last=True,
-                dummy=None, plane_mode=0, planes=(None, None), shape_tag="v0"):
-    """One launch of csrc/probe_step.cu's shared-memory step kernel:
-    steps n0 .. n0 + n_steps - 1 (anti-diagonal d = base + step + 2,
-    `base` a device int32 scalar or 0), one block a problem, the five
-    bands double-buffered in shared memory. The state comes from s_in
-    when n0 == 0, else from `state` (5, TB, K) int32, and goes back to
-    `state` when it is given. Every `chunk` steps the S band goes to
-    `sout` (when sout_every) and, as uint8, to `dummy` (TB, K); after
-    the last step to `sout` when sout_last. plane_mode 1-3 store each
-    step's choice plane (x6) into `planes` (from n0 = 0 only), with the
-    run band in shared memory."""
+def launch_smem(qb0, tb0, s_in, w: int, fill: int, n_steps: int, sout, shape_tag: str = "v0"):
+    """One launch of csrc/probe_step.cu's shared-memory kernel (x4 v0):
+    n_steps steps from s_in, the S band after the last into `sout`."""
+    from ..wfa import cuda_build
+
+    tb_, k = s_in.shape
+    for name, t in (("qb0", qb0), ("tb0", tb0), ("s_in", s_in), ("sout", sout)):
+        _check_cuda(name, t, torch.int32, (tb_, k))
+    if k > SMEM_MAX_K:
+        raise ValueError(f"v0's kernel takes K <= {SMEM_MAX_K}, not {k}")
+    lib = cuda_build.library("probe_step")
+    rc = lib.allwave_probe_step_smem(
+        qb0.data_ptr(), tb0.data_ptr(), s_in.data_ptr(), tb_, k, w, fill, q2_for(k), n_steps,
+        sout.data_ptr(), torch.cuda.current_stream(s_in.device).cuda_stream,
+    )
+    cuda_build.check(rc, "probe_step v0 kernel launch")
+    step_launches.launched((tb_, k, w, n_steps, shape_tag), SMEM_KERNEL)
+
+
+def launch_regs(qb0, tb0, s_in, w: int, fill: int, n0: int, n_steps: int, *, unroll: int = 2,
+                copies: int = 1, chunk=None, state=None, base=None, sout=None,
+                sout_every=False, sout_last=True, dummy=None, plane_mode=0,
+                planes=(None, None), shape_tag="v1"):
+    """One launch of csrc/probe_step.cu's register kernel: steps n0 ..
+    n0 + n_steps - 1 (anti-diagonal d = base + step + 2, `base` a device
+    int32 scalar or 0), one block of 256 threads a problem, K / 256
+    lanes a thread in registers, the loop unrolled `unroll` times,
+    `copies` problems interleaved (the second from s_in + 1; the output
+    is their sum). The state comes from s_in when n0 == 0, else from
+    `state` (5, TB, K) int32, and goes back to `state` when it is given.
+    Every `chunk` steps the S band goes to `sout` (when sout_every) and,
+    as uint8, to `dummy` (TB, K); after the last step to `sout` when
+    sout_last. plane_mode 1-3 store each step's plane entries (x6) into
+    `planes` (from n0 = 0 only), the run band in registers."""
     from ..wfa import cuda_build
 
     tb_, k = s_in.shape
@@ -257,17 +316,19 @@ def launch_smem(qb0, tb0, s_in, w: int, fill: int, n0: int, n_steps: int, *, chu
     if n0 > 0 and (state is None or plane_mode):
         raise ValueError("a launch after step 0 needs the state and stores no plane")
     chunk = chunk or n_steps
-    if n_steps % chunk:
-        raise ValueError(f"n_steps {n_steps} is not a multiple of chunk {chunk}")
+    if n_steps % chunk or chunk % unroll:
+        raise ValueError(f"{n_steps} steps do not split into chunks of {chunk}, a multiple of "
+                         f"the unroll {unroll}")
+    kernel = regs_kernel(k, unroll, copies, plane_mode)
     lib = cuda_build.library("probe_step")
-    rc = lib.allwave_probe_step_smem(
-        qb0.data_ptr(), tb0.data_ptr(), s_in.data_ptr(), tb_, k, w, fill, q2_for(k),
-        n0, n_steps, chunk, _ptr(state), _ptr(base), _ptr(sout), int(sout_every),
+    rc = lib.allwave_probe_step_regs(
+        qb0.data_ptr(), tb0.data_ptr(), s_in.data_ptr(), tb_, k, w, fill, q2_for(k), n0,
+        n_steps, chunk, unroll, copies, _ptr(state), _ptr(base), _ptr(sout), int(sout_every),
         int(sout_last), _ptr(dummy), plane_mode, _ptr(planes[0]), _ptr(planes[1]),
         torch.cuda.current_stream(s_in.device).cuda_stream,
     )
-    cuda_build.check(rc, "probe_step kernel launch")
-    step_launches.launched((tb_, k, w, n_steps, shape_tag))
+    cuda_build.check(rc, f"probe_step {kernel} launch, {n_steps} steps")
+    step_launches.launched((tb_, k, w, n_steps, shape_tag), kernel)
 
 
 def sweep(variant: str, qb0, tb0, s_in, nsteps: int = NSTEPS, w: int = W):
@@ -275,23 +336,11 @@ def sweep(variant: str, qb0, tb0, s_in, nsteps: int = NSTEPS, w: int = W):
     csrc/probe_step.cu kernel for CUDA tensors. (TB, K) int32."""
     if s_in.device.type == "cpu":
         return run_ref(variant, qb0, tb0, s_in, nsteps, w)
-    from ..wfa import cuda_build
-
     v = VARIANTS[variant]
-    tb_, k = s_in.shape
     sout = torch.empty_like(s_in)
     if v.smem:
-        launch_smem(qb0, tb0, s_in, w, v.fill, 0, nsteps, sout=sout, shape_tag=variant)
-        return sout
-    for name, t in (("qb0", qb0), ("tb0", tb0), ("s_in", s_in)):
-        _check_cuda(name, t, torch.int32, (tb_, k))
-    lib = cuda_build.library("probe_step")
-    rc = lib.allwave_probe_step_regs(
-        qb0.data_ptr(), tb0.data_ptr(), s_in.data_ptr(), tb_, k, w, v.fill, q2_for(k),
-        nsteps, v.unroll, v.copies, sout.data_ptr(),
-        torch.cuda.current_stream(s_in.device).cuda_stream,
-    )
-    cuda_build.check(rc, f"probe_step {variant} at K {k}, {nsteps} steps (K = 256 * 1, 2, 4, "
-                         f"6 or 8, steps a multiple of the unroll)")
-    step_launches.launched((tb_, k, w, nsteps, variant))
+        launch_smem(qb0, tb0, s_in, w, v.fill, nsteps, sout, shape_tag=variant)
+    else:
+        launch_regs(qb0, tb0, s_in, w, v.fill, 0, nsteps, unroll=v.unroll, copies=v.copies,
+                    sout=sout, shape_tag=variant)
     return sout

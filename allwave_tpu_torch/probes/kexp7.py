@@ -5,10 +5,10 @@ Port of scripts/experiments/kexp7.py (`make_kernel`; the pallas_call in
 W=256 over NSTEPS=4096 steps, split into nd chunks of NSTEPS/nd steps.
 On the TPU a chunk is one step of a sequential grid and the state stays
 in VMEM scratch between them. On Hopper nothing carries over between
-launches, so a chunk is one launch of csrc/probe_step.cu's shared-memory
-kernel and the five bands round-trip through a device buffer, as
-wfa/segmented.py's sweep does once per span (PERF.md section 5). The
-variants, as in the experiment:
+launches, so a chunk is one launch of csrc/probe_step.cu's register
+kernel (`kexp6.launch_regs`, unroll 2) and the five bands round-trip
+through a device buffer, as wfa/segmented.py's sweep does once per span
+(PERF.md section 5). The variants, as in the experiment:
 
 * g0: one chunk;
 * g1/g2, g3/g4: 16 and 128 chunks, S written out after every chunk or
@@ -19,7 +19,7 @@ variants, as in the experiment:
   as the TPU kernel reads it from SMEM;
 * g8, g9: 32 and 64 chunks;
 * g10 (Hopper only): g3's 128 chunks looped inside one launch, the
-  state in shared memory throughout.
+  state in registers throughout.
 
 Every variant's S output equals x4's v0 at TB=16 (the same 4096 steps,
 the stream scratch filled with kexp6.FILL_SCRATCH); a dummy output
@@ -109,6 +109,11 @@ def launches(variant: str) -> int:
     return 1 if v.one_launch else v.nd
 
 
+def kernel_for(variant: str, k: int) -> str:
+    """The csrc/probe_step.cu kernel every x5 launch runs at band K."""
+    return S.regs_kernel(k)
+
+
 def run(variant: str, qb0, tb0, s_in, nsteps: int = NSTEPS, w: int = W):
     """One x5 variant: the plain version for CPU tensors; for CUDA
     tensors one csrc/probe_step.cu launch a chunk (one in all for g10)."""
@@ -122,7 +127,7 @@ def run(variant: str, qb0, tb0, s_in, nsteps: int = NSTEPS, w: int = W):
     dc = nsteps // v.nd
     sout = torch.empty_like(s_in)
     if v.one_launch:
-        S.launch_smem(qb0, tb0, s_in, w, S.FILL_SCRATCH, 0, nsteps, chunk=dc, sout=sout,
+        S.launch_regs(qb0, tb0, s_in, w, S.FILL_SCRATCH, 0, nsteps, chunk=dc, sout=sout,
                       sout_every=v.state_every, shape_tag=variant)
         return sout, None
     state = torch.empty((5, tb_, k), dtype=torch.int32, device=dev)
@@ -132,7 +137,7 @@ def run(variant: str, qb0, tb0, s_in, nsteps: int = NSTEPS, w: int = W):
         dummy = torch.empty((1 if v.dummy == "const" else v.nd, tb_, k), dtype=torch.uint8,
                             device=dev)
     for dch in range(v.nd):
-        S.launch_smem(qb0, tb0, s_in, w, S.FILL_SCRATCH, dch * dc, dc, state=state, base=base,
+        S.launch_regs(qb0, tb0, s_in, w, S.FILL_SCRATCH, dch * dc, dc, state=state, base=base,
                       sout=sout, sout_every=v.state_every, sout_last=dch == v.nd - 1,
                       dummy=None if dummy is None else dummy[0 if v.dummy == "const" else dch],
                       shape_tag=variant)

@@ -17,9 +17,11 @@ formats:
 
 On the TPU the plane leaves in (DC, TB, K) blocks, one per grid step of
 DC=32 steps. On Hopper the whole sweep is one launch of
-csrc/probe_step.cu's shared-memory kernel and each step stores its
-plane row directly, so DC has no counterpart. The stream scratch is
-filled with kexp6.FILL_SCRATCH, as in the experiment.
+csrc/probe_step.cu's register kernel (`kexp6.launch_regs`): each thread
+computes its lanes' entries from the values before the step, the lanes
+that do not move included, and stores them in one or two vector stores
+a plane row, so DC has no counterpart. The stream scratch is filled
+with kexp6.FILL_SCRATCH, as in the experiment.
 """
 
 from __future__ import annotations
@@ -115,6 +117,11 @@ def work(mode: str, tb: int = TB, k: int = K, nsteps: int = NSTEPS):
     return ops, nbytes
 
 
+def kernel_for(mode: str, k: int) -> str:
+    """The csrc/probe_step.cu kernel an x6 mode runs at band K."""
+    return S.regs_kernel(k, plane=MODES.index(mode))
+
+
 def run(mode: str, qb0, tb0, s_in, nsteps: int = NSTEPS, w: int = W):
     """One x6 mode: the plain version for CPU tensors, one
     csrc/probe_step.cu launch for CUDA tensors."""
@@ -123,7 +130,7 @@ def run(mode: str, qb0, tb0, s_in, nsteps: int = NSTEPS, w: int = W):
     sout = torch.empty_like(s_in)
     planes = tuple(torch.empty((nsteps, *s_in.shape), dtype=dt, device=s_in.device)
                    for dt in _PLANE_DTYPES.get(mode, ()))
-    S.launch_smem(qb0, tb0, s_in, w, S.FILL_SCRATCH, 0, nsteps, sout=sout,
+    S.launch_regs(qb0, tb0, s_in, w, S.FILL_SCRATCH, 0, nsteps, sout=sout,
                   plane_mode=MODES.index(mode),
                   planes=planes + (None,) * (2 - len(planes)), shape_tag=mode)
     return sout, planes

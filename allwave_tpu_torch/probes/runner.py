@@ -13,7 +13,13 @@ the max SM clock that nvidia-smi reports) and the bytes over the HBM
 rate (3.35 TB/s). The operations are the least instruction slots of the ALU
 pipe, whose lanes that rate counts: sm_90 instructions with their fused
 forms, the adds that can run on the FMA pipe as IMAD set beside them
-(kexp6.STEP_OPS and kexp2.ops_per_step say how).
+(kexp6.STEP_OPS and kexp2.ops_per_step say how). The step probes'
+lines (x4-x6) also carry a chain bound where one is given
+(`step_chains`): the steps times one step's dependent chain, read off
+the build's machine code (`sass.step_chain`: the neighbour exchange, the
+dependent ALU and DPX instructions, the block's barrier), at the
+latencies `latency.py` measures on the card. No serial step on 8 or 16
+SMs comes near the operations bound; the chain share is the yardstick.
 
 With `device="cpu"` nothing is checked (the wrappers run the plain
 versions for CPU tensors) and the plain versions are timed at the
@@ -24,6 +30,7 @@ from __future__ import annotations
 
 import subprocess
 import time
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -63,6 +70,52 @@ REPS = 5
 
 class ProbeMismatch(AssertionError):
     pass
+
+
+@dataclass
+class StepChains:
+    """One step's dependent chain for each kernel of csrc/probe_step.cu
+    ({kernel: {"shfl", "lds", "alu", "bar", ...}}, `sass.step_chain`)
+    and the card's latencies ({"lds_ns", "alu_ns", "shfl_ns", "bar_ns":
+    {block threads: ns}})."""
+
+    chains: dict
+    latency: dict
+
+    def ns(self, kernel: str, k: int) -> float:
+        """One step's chain in ns for `kernel` at band K."""
+        c, lat = self.chains[kernel], self.latency
+        return (c["shfl"] * lat["shfl_ns"] + c["lds"] * lat["lds_ns"] + c["alu"] * lat["alu_ns"]
+                + c["bar"] * lat["bar_ns"][K6.block_threads(kernel, k)])
+
+
+def step_kernel_chains() -> dict:
+    """{kernel: step chain or None} for every kernel of
+    csrc/probe_step.cu, read off this build's machine code."""
+    from . import sass
+
+    funcs, labels = sass.parse(sass.listing("probe_step"))
+    out = {}
+    for func, insns in funcs.items():
+        name = sass.kernel_name(func, "step_regs_kernel") or sass.kernel_name(func, K6.SMEM_KERNEL)
+        if name is not None:
+            out[name] = sass.step_chain(insns, labels[func])
+    return out
+
+
+def step_chains(device, chains=None) -> StepChains:
+    """The step probes' chains (`step_kernel_chains`, unless given) and
+    the latencies they are made of, measured on `device` at the block
+    sizes the probes' shapes run."""
+    from .latency import step_latency_ns, walk_latency_ns
+
+    chains = step_kernel_chains() if chains is None else chains
+    missing = sorted(k for k, c in chains.items() if c is None)
+    if missing:
+        raise ProbeMismatch(f"no step chain in the machine code of {missing}")
+    sizes = {K6.REG_THREADS} | {K6.block_threads(K6.SMEM_KERNEL, k)
+                                for k in (STEP_REDUCED[1], K6.K)}
+    return StepChains(chains, {**walk_latency_ns(device), **step_latency_ns(device, sizes)})
 
 
 # ---------------------------------------------------------------- helpers
@@ -299,11 +352,22 @@ def _line(probe, variant, label, shape, times, n_steps, work, ops_s, launches):
     return r
 
 
+def _step_line(r, kernel: str, chains):
+    """A step probe's line with its kernel and, given `chains`, its chain
+    bound and share."""
+    r["kernel"] = kernel
+    if chains is not None:
+        r["chain_bound_ms"] = r["n_steps"] * chains.ns(kernel, r["K"]) * 1e-6
+        r["chain_share"] = r["chain_bound_ms"] / r["ms"]
+    return r
+
+
 def time_all(device, only=PROBES, reps: int = REPS, full: bool = True, ops_s=None,
-             latency: bool = True):
+             latency: bool = True, chains=None):
     """Every variant of every probe timed at the experiment's own shape
     (full) or at the reduced one; x2 and x3 on the filled card and, with
-    `latency`, as one copy too. Returns the result dicts."""
+    `latency`, as one copy too; the step probes with their chain bounds
+    where `chains` (a StepChains) is given. Returns the result dicts."""
     out = []
     tb, k, w, n = (K6.TB, K6.K, K6.W, K6.NSTEPS) if full else STEP_REDUCED
     if "kexp6" in only:
@@ -311,7 +375,9 @@ def time_all(device, only=PROBES, reps: int = REPS, full: bool = True, ops_s=Non
         shape = {"TB": tb, "K": k, "W": w, "n_steps": n}
         for v, spec in K6.VARIANTS.items():
             times = timed(lambda: K6.sweep(v, *args, n, w), device, reps)
-            out.append(_line("kexp6", v, spec.label, shape, times, n, K6.work(v, tb, k, n), ops_s, 1))
+            out.append(_step_line(_line("kexp6", v, spec.label, shape, times, n,
+                                        K6.work(v, tb, k, n), ops_s, 1),
+                                  K6.kernel_for(v, k), chains))
     if "kexp7" in only:
         tb, k, w, n = (K7.TB, K7.K, K7.W, K7.NSTEPS) if full else STEP_REDUCED
         args = _step_inputs(device, tb, k)
@@ -321,14 +387,16 @@ def time_all(device, only=PROBES, reps: int = REPS, full: bool = True, ops_s=Non
             r = _line("kexp7", v, spec.label, shape, times, n, K7.work(v, tb, k, n), ops_s,
                       K7.launches(v))
             r["us_per_chunk"] = r["ms"] * 1e3 / spec.nd
-            out.append(r)
+            out.append(_step_line(r, K7.kernel_for(v, k), chains))
     if "kexp8" in only:
         tb, k, w, n = (K8.TB, K8.K, K8.W, K8.NSTEPS) if full else STEP_REDUCED
         args = _step_inputs(device, tb, k)
         shape = {"TB": tb, "K": k, "W": w, "n_steps": n}
         for m in K8.MODES:
             times = timed(lambda: K8.run(m, *args, n, w), device, reps)
-            out.append(_line("kexp8", m, K8.LABELS[m], shape, times, n, K8.work(m, tb, k, n), ops_s, 1))
+            out.append(_step_line(_line("kexp8", m, K8.LABELS[m], shape, times, n,
+                                        K8.work(m, tb, k, n), ops_s, 1),
+                                  K8.kernel_for(m, k), chains))
     steps = K2.STEPS * K2.TILES if full else OPS_REDUCED_STEPS
     # latency (one copy) and throughput (the card filled); one on the CPU
     copies_list = (1,)
@@ -385,6 +453,8 @@ def _fmt(r) -> str:
     extra = f" {r['us_per_chunk']:8.2f} us/chunk" if "us_per_chunk" in r else ""
     bnd = (f"  bound {r['bound_ms']:.4f} ms ({r['bound_by']}, share {r['share_of_bound']:.3f})"
            if "bound_ms" in r else "")
+    if "chain_bound_ms" in r:
+        bnd += f"  chain {r['chain_bound_ms']:.4f} ms (share {r['chain_share']:.3f})"
     return (f"{r['probe']} {r['label']:40s} [{shape}] {r['ms']:10.3f} ms {per}{extra}"
             f"  host {r['host_ms']:.3f} ms{bnd}")
 
@@ -412,7 +482,12 @@ def main(argv=None) -> int:
         device = torch.device("cuda", 0)
         for r in check_all(device, only):
             print("check " + json.dumps(r), flush=True)
-        results = time_all(device, only, full=True, ops_s=int32_ops_s(device))
+        steps = {"kexp6", "kexp7", "kexp8"} & set(only)
+        chains = step_chains(device) if steps else None
+        if chains is not None:
+            print("step chains " + json.dumps({"chains": chains.chains, "latency": chains.latency}),
+                  flush=True)
+        results = time_all(device, only, full=True, ops_s=int32_ops_s(device), chains=chains)
     else:
         device = torch.device("cpu")
         results = time_all(device, only, full=False)

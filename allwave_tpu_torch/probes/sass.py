@@ -14,7 +14,10 @@ or fuses an add and a min into one DPX VIADDMNMX.
 `hop_chain` reads a serial walk's dependent chain off its machine code:
 the least latency, in loads and ALU instructions, from one hop's tile
 load to the next (the walks' chain bounds, chip_smoke.py phases 1 and
-16).
+16). `step_chain` reads a lock-step loop's (the step probes'): the
+longest chain of one step, from its neighbour exchange (a shuffle or a
+shared-memory load) through the dependent instructions and the step's
+barrier to the next step's exchange.
 """
 
 from __future__ import annotations
@@ -228,6 +231,166 @@ def hop_chain(insns, labels):
         if c is not None and (best is None or LOAD_WEIGHT * c[0] + c[1] < LOAD_WEIGHT * best[0] + best[1]):
             best = (c[0], c[1], addr)
     return None if best is None else {"loads": best[0], "alu": best[1], "at": best[2]}
+
+
+#: the instructions a step exchanges its neighbours' values by
+EXCHANGE = ("SHFL", "LDS")
+#: a step chain's counts, in this order
+STEP_KINDS = ("shfl", "lds", "alu", "bar")
+
+
+def _step_kind(op: str) -> int:
+    for k, prefix in ((0, "SHFL"), (1, "LDS"), (3, "BAR")):
+        if op.startswith(prefix):
+            return k
+    return 2
+
+
+def _plus(t, k: int):
+    return t[:k] + (t[k] + 1,) + t[k + 1:]
+
+
+def _step_key(t) -> int:
+    return LOAD_WEIGHT * (t[0] + t[1] + t[3]) + t[2]
+
+
+def _innermost_loop(insns, labels, i):
+    """(start, end) indices of the innermost loop (a backward branch and
+    its target) holding instruction i, or None."""
+    at = {a: k for k, (a, _) in enumerate(insns)}
+    best = None
+    for k, (_, text) in enumerate(insns):
+        op = opcode(text)
+        if not op.startswith("BRA"):
+            continue
+        m = _TARGET.search(text.split(op, 1)[1])
+        tgt = None if m is None else labels.get(m.group(1)) if m.group(1) else int(m.group(2), 16)
+        if tgt not in at or at[tgt] > k or not at[tgt] <= i <= k:
+            continue
+        if best is None or k - at[tgt] < best[1] - best[0]:
+            best = (at[tgt], k)
+    return best
+
+
+def _branch_target(insns, labels, at, k):
+    """The index a branch instruction k jumps to, or None."""
+    op = opcode(insns[k][1])
+    m = _TARGET.search(insns[k][1].split(op, 1)[1])
+    tgt = None if m is None else labels.get(m.group(1)) if m.group(1) else int(m.group(2), 16)
+    return at.get(tgt)
+
+
+def _step_chains(insns, labels, i, loop, limit: int = 256):
+    """The chains (shfl, lds, alu, bar) from exchange i's issue to the
+    issue of the first exchange that depends on it, along every way
+    round `loop` (start, end) from i: each conditional forward branch
+    taken and not (at most `limit` ways), an unconditional one
+    followed, the loop's back edge taken (an inner loop's not). A way
+    that leaves the loop, or passes a second barrier (more than one
+    step), has none. Instructions issue in order, each once its sources
+    are ready; a result is ready one latency of its kind later; nothing
+    issues before a barrier completes. A shared-memory store of a value
+    that depends on i, then a barrier, makes every later shared-memory
+    load depend on i."""
+    at = {a: k for k, (a, _) in enumerate(insns)}
+    start, end = loop
+    zero = (0, 0, 0, 0)
+    _, op, dests, _ = operands(insns[i][1])
+    ready0 = {r: _plus(zero, _step_kind(op)) for r in dests}
+    # (index, ready, tainted, issue, stored, visible, instructions walked)
+    todo = [(i + 1, ready0, set(dests), zero, False, None, 0)]
+    out, ways = [], 1
+    while todo:
+        k, ready, tainted, issue, stored, visible, n = todo.pop()
+        while n <= 2 * (end - start + 1):
+            if k > end:
+                k = start
+            n += 1
+            guard, op, dests, srcs = operands(insns[k][1])
+            via_memory = op.startswith("LDS") and visible is not None
+            times = [issue] + [ready[r] for r in srcs if r in ready] + (
+                [visible] if via_memory else [])
+            issue = max(times, key=_step_key)
+            hit = via_memory or any(r in tainted for r in srcs)
+            if op.startswith(EXCHANGE) and hit:
+                out.append(issue)
+                break
+            if k == i or (op.startswith(("EXIT", "RET")) and not guard):
+                break
+            if op.startswith("BAR"):
+                if issue[3]:
+                    break  # a second barrier: more than one step
+                issue = _plus(issue, 3)
+                if stored:
+                    visible = issue
+                k += 1
+                continue
+            if op.startswith("BRA"):
+                tgt = _branch_target(insns, labels, at, k)
+                if tgt is None or not start <= tgt <= end:
+                    if not (guard or srcs):
+                        break  # leaves the loop
+                    k += 1
+                    continue
+                if not (guard or srcs):
+                    k = tgt
+                elif tgt > k and ways < limit:
+                    ways += 1
+                    todo.append((tgt, dict(ready), set(tainted), issue, stored, visible, n))
+                    k += 1
+                else:
+                    k = tgt if tgt == start else k + 1
+                continue
+            if op.startswith("STS") and hit:
+                stored = True
+            done = _plus(issue, _step_kind(op))
+            for r in dests:
+                ready[r] = max(ready.get(r, zero), done, key=_step_key) if guard else done
+                if hit:
+                    tainted.add(r)
+                elif not guard:
+                    tainted.discard(r)
+            k += 1
+    return out
+
+
+def step_chain(insns, labels):
+    """The dependent chain of one step of a lock-step loop, from its
+    machine code (`parse`): for every exchange instruction (SHFL, LDS)
+    in a loop, the least chain over its ways round the loop to the
+    first exchange that depends on it, through registers or through
+    shared memory over a barrier (`_step_chains`: the fastest way a step
+    that computes can take); the longest of those over the exchanges:
+    {"shfl", "lds", "alu", "bar", "exchange" (its opcode), "at" (its
+    address)}, or None where no exchange has one."""
+    best = None
+    for i, (addr, text) in enumerate(insns):
+        op = operands(text)[1]
+        if not op.startswith(EXCHANGE):
+            continue
+        loop = _innermost_loop(insns, labels, i)
+        chains = [] if loop is None else _step_chains(insns, labels, i, loop)
+        if not chains:
+            continue
+        c = min(chains, key=_step_key)
+        if best is None or _step_key(c) > _step_key(best[0]):
+            best = (c, op, addr)
+    if best is None:
+        return None
+    return {**dict(zip(STEP_KINDS, best[0])), "exchange": best[1], "at": best[2]}
+
+
+def kernel_name(func: str, name: str):
+    """`name<a, b, ...>` for a mangled kernel name that instantiates
+    template `name` with int arguments, `name` for one that is no
+    template; None where func is not `name`."""
+    m = re.search(r"\d+" + re.escape(name) + r"(I(?:Li\d+E)+E)?", func)
+    if m is None:
+        return None
+    if m.group(1) is None:
+        return name
+    args = re.findall(r"Li(\d+)E", m.group(1))
+    return f"{name}<{', '.join(args)}>"
 
 
 def cuobjdump() -> str:

@@ -93,17 +93,17 @@ SIGNATURES = {
         "allwave_probe_forward": ([_P] * 4 + [_I] * 10 + [_P] * 4, _I),
     },
     "probe_step": {
-        "allwave_probe_step_smem": (
-            [_P] * 3 + [_I] * 8 + [_P] * 3 + [_I] * 2 + [_P, _I] + [_P] * 3,
+        "allwave_probe_step_smem": ([_P] * 3 + [_I] * 6 + [_P] * 2, _I),
+        "allwave_probe_step_regs": (
+            [_P] * 3 + [_I] * 10 + [_P] * 3 + [_I] * 2 + [_P, _I] + [_P] * 3,
             _I,
         ),
-        "allwave_probe_step_regs": ([_P] * 3 + [_I] * 8 + [_P] * 2, _I),
     },
     "probe_ops": {
         "allwave_probe_ops": ([_P] * 2 + [_I] * 10 + [_P], _I),
     },
     "probe_latency": {
-        "allwave_probe_latency": ([_I, _I, _P, _P], _I),
+        "allwave_probe_latency": ([_I, _I, _I, _P, _P], _I),
         "allwave_probe_dram": ([_P, _I, _I, _P, _P], _I),
     },
 }

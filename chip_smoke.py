@@ -10,8 +10,10 @@ checkout (one nvcc per source, all at once; phase 1 prints every dense
 forward, traceback and span kernel's registers and spill bytes from
 ptxas, fails if a register-band forward or replay kernel or the
 traceback spills, and prints the opcodes of the cluster sweep's and the
-cluster replay's loops), drives the port's three engines and runs the
-probes:
+cluster replay's loops; for the step probes' 36 instantiations it
+prints registers, spills, each one's step loop and its dependent chain
+a step, and fails on a spill or a kernel with no chain), drives the
+port's three engines and runs the probes:
 
 * the short-pair main path (phases 2-6): the dense forward and
   traceback kernels against their plain PyTorch versions (the forward
@@ -64,8 +66,10 @@ probes:
   the experiment's shape, as `python -m allwave_tpu_torch.probes` does;
   and the cluster sweep's barrier alone, timed in the sweep's launch
   shape at every design phases 7 and 11 ran; and the latencies the
-  walks' chain bounds are made of (a dependent shared-memory load, an
-  ALU instruction, a device-memory load that misses L2).
+  walks' and the step probes' chain bounds are made of (a dependent
+  shared-memory load, an ALU instruction, a device-memory load that
+  misses L2, a shuffle, a block's barrier at each block size the step
+  kernels run).
 
 Each wrapper counts its launches by shape; every count is set to 0 just
 before a path is driven and read just after. Every kernel is held to its
@@ -965,6 +969,33 @@ def main() -> int:
         print(f"phase 1 {name} hop chain: " + json.dumps(chain), flush=True)
         hop_chains[name] = chain
     report["walk_hop_chains"] = hop_chains
+    # the step probes (csrc/probe_step.cu): every instantiation's
+    # registers and spills (none may spill), its step loop (its longest),
+    # and its dependent chain a step read off this build's machine code
+    # (`probes.sass.step_chain`: the neighbour exchange, the dependent
+    # ALU and DPX instructions, the barrier), phase 16's chain bound;
+    # none may lack one
+    from allwave_tpu_torch.probes import runner as PR
+
+    step_usage = cuda_build.ptxas_usage("probe_step")
+    for fn, u in sorted(step_usage.items()):
+        print("phase 1 ptxas: " + json.dumps({"kernel": _short(fn), **u}), flush=True)
+    check(len(step_usage) == 36 and all(u.get("spill_stores", 1) == 0 and u.get("spill_loads", 1) == 0
+                                        for u in step_usage.values()),
+          f"a step probe kernel spills, or the build lacks one of its 36: {step_usage}")
+    step_loops = {}
+    for r in SA.report(["probe_step"]):
+        if r["instructions"] > step_loops.get(r["function"], {"instructions": 0})["instructions"]:
+            step_loops[r["function"]] = r
+    for r in step_loops.values():
+        print("phase 1 probe_step loop: " + json.dumps(r), flush=True)
+    step_chains = PR.step_kernel_chains()
+    for name, chain in sorted(step_chains.items()):
+        print("phase 1 probe_step chain: " + json.dumps({"kernel": name, "chain": chain}), flush=True)
+    check(len(step_chains) == 36 and all(c is not None for c in step_chains.values()),
+          "a step probe kernel has no step chain in its machine code: "
+          f"{sorted(k for k, c in step_chains.items() if c is None)}")
+    report["step_chains"] = step_chains
     stamp(1)
 
     # -- phase 2: forward kernel against its plain version ---------------
@@ -1646,12 +1677,17 @@ def main() -> int:
     # experiment's own shape where the plain version is quick, then the
     # probes' own path, `python -m allwave_tpu_torch.probes`: every
     # variant timed at the experiment's shape (mean of 5 after a warm-up)
-    from allwave_tpu_torch.probes import runner as PR
     from allwave_tpu_torch.probes import kexp as P1
     from allwave_tpu_torch.probes import kexp2 as P2
     from allwave_tpu_torch.probes import kexp6 as P6
 
     ops_s = PR.int32_ops_s(dev)
+    # the step probes' chain bounds: phase 1's chains at the latencies
+    # this card's dependent shuffles, loads, ALU instructions and block
+    # barriers take (csrc/probe_latency.cu)
+    chains16 = PR.step_chains(dev, step_chains)
+    print("phase 16 step latency: " + json.dumps(chains16.latency), flush=True)
+    report["step_latency_ns"] = chains16.latency
     checks16 = PR.check_all(dev)
     for r in checks16:
         print("phase 16 probe: " + json.dumps(r), flush=True)
@@ -1660,7 +1696,7 @@ def main() -> int:
         lc.reset()
     # (x2 and x3 on the filled card only: their one-copy latencies are
     # the entry point's)
-    times16 = PR.time_all(dev, ops_s=ops_s, latency=False)
+    times16 = PR.time_all(dev, ops_s=ops_s, latency=False, chains=chains16)
     torch.cuda.synchronize()
     launches_probe = {"probe_forward": P1.forward_launches.count,
                       "probe_step": P6.step_launches.count, "probe_ops": P2.ops_launches.count}
@@ -1682,6 +1718,7 @@ def main() -> int:
     x1_t, x1_c = pick(times16, file="kexp", variant="V1", **x1_shape), pick(
         checks16, file="kexp", variant="V1", **x1_shape)
     x4_t = pick(times16, file="kexp6", variant="v0")
+    x4_v1 = pick(times16, file="kexp6", variant="v1")
     x4_c = pick(checks16, file="kexp6", variant="v0", K=P6.K)
     x2_t = max((r for r in times16 if r["variant"] == PR.X2_FULL_CASE),
                key=lambda r: r["copies"])
@@ -1766,9 +1803,9 @@ def main() -> int:
     # to the next, read off this build's machine code by
     # `probes.sass.hop_chain`), at the latencies one thread's dependent
     # chains of each take on this card (csrc/probe_latency.cu)
-    from allwave_tpu_torch.probes.latency import dram_ns, walk_latency_ns
+    from allwave_tpu_torch.probes.latency import dram_ns
 
-    lat16 = walk_latency_ns(dev)
+    lat16 = {k: chains16.latency[k] for k in ("lds_ns", "alu_ns")}
     # the dense traceback's round trips each wait on a device-memory load
     # that misses L2 (its plane is gigabytes): one thread's dependent
     # chain of such loads
@@ -1901,6 +1938,10 @@ def main() -> int:
                                if r["file"] in ("kexp6", "kexp7", "kexp8")),
             "ms": x4_t["ms"], "plain_ms": x4_c["plain_ms"],
             "bound_ms": x4_t["bound_ms"], "bound_by": x4_t["bound_by"], "library_ms": None,
+            "chain_bound_ms": x4_t["chain_bound_ms"],
+            # v0 (step_smem_kernel) above, v1 (step_regs_kernel) here
+            "v1": {"kernel": x4_v1["kernel"], "ms": x4_v1["ms"], "bound_ms": x4_v1["bound_ms"],
+                   "bound_by": x4_v1["bound_by"], "chain_bound_ms": x4_v1["chain_bound_ms"]},
         },
         {
             "name": "probe_ops", "route": "cuda",

@@ -713,3 +713,35 @@ def test_probe_forward_at_headline_band(cuda_device):
     out = []
     runner.check_x1(cuda_device, 64, 200, 256, 192, out)
     assert len(out) == 3 and all(r["max_abs_err"] == 0 for r in out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [256, 512, 1024, 1536, 2048])
+def test_step_kernels_at_every_register_band(cuda_device, k):
+    """csrc/probe_step.cu at every K its register kernel takes (LPT = K /
+    256 = 1, 2, 4, 6, 8): x4 v0-v4, x5's chunked launches (the state
+    through device memory, the dummy, the device base) and x6's four
+    plane formats against their plain versions, each launch recording
+    the kernel it ran."""
+    from allwave_tpu_torch.probes import kexp6 as P6
+    from allwave_tpu_torch.probes import kexp7 as P7
+    from allwave_tpu_torch.probes import kexp8 as P8
+
+    tb, w, n = 2, 128, 256
+    args = tuple(torch.from_numpy(a).to(cuda_device) for a in P6.inputs(tb, k))
+    x4 = {"v0": P6.run_ref("v0", *args, n, w), **P6.carried_refs(*args, n, w)}
+    x5, x6 = P7.refs(*args, n, w), P8.refs(*args, n, w)
+    P6.step_launches.reset()
+    for v, ref in x4.items():
+        assert torch.equal(P6.sweep(v, *args, n, w), ref), v
+        assert P6.step_launches.designs[(tb, k, w, n, v)] == P6.kernel_for(v, k)
+    for v in ("g0", "g3", "g6", "g7", "g10"):
+        s, dummy = P7.run(v, *args, n, w)
+        assert torch.equal(s, x5[v][0]) and (dummy is None or torch.equal(dummy, x5[v][1])), v
+        shape = (tb, k, w, n // P7.VARIANTS[v].nd if not P7.VARIANTS[v].one_launch else n, v)
+        assert P6.step_launches.designs[shape] == P7.kernel_for(v, k) == P6.regs_kernel(k)
+    for m in P8.MODES:
+        s, planes = P8.run(m, *args, n, w)
+        assert torch.equal(s, x6[m][0]) and all(torch.equal(a, b) for a, b in zip(planes, x6[m][1]))
+        assert P6.step_launches.designs[(tb, k, w, n, m)] == P8.kernel_for(m, k)
+    torch.cuda.synchronize()
