@@ -14,19 +14,28 @@
 //
 // What bounds it on an H100: one block keeps one SM's INT32 lanes busy
 // with ADDS/2 + 2 SELS + MINS int32 instructions per element and step
-// (and ROLLS/4 shuffles) on 8192 or 16384 elements: operations, at 1/132 of
-// the card for one copy. `copies` blocks each run the chain on their own
-// copy to fill the card.
+// on 8192 or 16384 elements: operations, at 1/132 of the card for one
+// copy. `copies` blocks each run the chain on their own copy to fill
+// the card. A roll does no arithmetic, but its shuffles share the
+// issue slots and an SM's shuffle unit gives half the results a clock
+// that its INT32 lanes do: the fewer shuffles an element, the nearer
+// the chain comes to its adds alone.
 //
-// Design: the tile's lines along the roll axis (128 elements) are each
-// held by one warp, 4 adjacent elements a thread; a warp holds LINES/8
-// lines, so the 8 warps of a block hold the tile in registers, whatever
-// the axis (the loads and stores index the tile by axis). A roll is one
-// __shfl_sync from the lane before and three register moves. The adds,
-// selects and mins are volatile inline PTX with operands in registers,
-// so the compiler drops none of them (ptxas still merges two adds into
-// one three-input IADD3); they run op by op across all of a
-// thread's elements, which are independent.
+// Design: each thread holds E adjacent elements of a line (a segment;
+// E = seg_elems below: 32 where ROLLS x UNROLL is a multiple of 32, else
+// 8), so a line of 128 spans 128 / E threads of one warp and a thread
+// holds 8192 / 256 / E or 16384 / 256 / E segments of different lines,
+// whatever the axis (the loads and stores index the tile by axis). A
+// roll is one __shfl_sync a segment, the element the thread before in
+// the line held last; the thread's other elements are renamed, which
+// costs nothing where the rotation comes back to the identity at the
+// step loop's back edge (ROLLS x UNROLL a multiple of E) and register
+// moves where it does not (x2's 4r case: a rotation by 4 of 8). Every
+// roll still moves data: no two are merged and none is folded into the
+// stores. The adds, selects and mins are volatile inline PTX with
+// operands in registers, so the compiler drops none of them (ptxas
+// still merges two adds into one three-input IADD3); they run op by op
+// across all of a thread's elements, which are independent.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -35,14 +44,31 @@ namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int LINE = 128;
+constexpr int THREADS = 256;
 
+// elements of a line a thread holds: the widest of 32 and 8 whose
+// renaming comes back to the identity after one turn of the step loop
+// (ROLLS x UNROLL rolls), else 8
+__host__ __device__ constexpr int seg_elems(int rolls, int unroll) {
+  return rolls * unroll > 0 && (rolls * unroll) % 32 == 0 ? 32 : 8;
+}
+
+// one block an SM (a copy): up to 255 registers a thread, so that the
+// 64 elements of a 128-line tile and the op constants fit without a spill
 template <int LINES, int ROLLS, int ADDS, int SELS, int MINS, int UNROLL>
-__global__ void __launch_bounds__(256) ops_kernel(const int* __restrict__ x,
-                                                  int* __restrict__ out,
-                                                  int axis, int C,
-                                                  int n_iter, int zero) {
-  constexpr int LPW = LINES / 8;  // lines a warp holds
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+__global__ void __launch_bounds__(THREADS, 1) ops_kernel(const int* __restrict__ x,
+                                                      int* __restrict__ out,
+                                                      int axis, int C,
+                                                      int n_iter, int zero) {
+  constexpr int E = seg_elems(ROLLS, UNROLL);
+  constexpr int TPL = LINE / E;                      // threads a line
+  constexpr int NSEG = LINES * LINE / THREADS / E;   // segments a thread
+  constexpr int LSTEP = THREADS / TPL;               // lines between them
+  static_assert(NSEG >= 1 && 32 % TPL == 0, "a line lies inside one warp");
+  const int lane = threadIdx.x & 31;
+  const int m0 = threadIdx.x / TPL, e0 = (threadIdx.x % TPL) * E;
+  // the thread before in the line, cyclic: it holds elements e0 - E ..
+  const int src = (lane & ~(TPL - 1)) | ((lane + TPL - 1) & (TPL - 1));
   int ca[ADDS > 0 ? ADDS : 1], cs[SELS > 0 ? SELS : 1], cm[MINS > 0 ? MINS : 1];
 #pragma unroll
   for (int i = 0; i < ADDS; ++i) ca[i] = zero + i + 1;
@@ -51,13 +77,13 @@ __global__ void __launch_bounds__(256) ops_kernel(const int* __restrict__ x,
 #pragma unroll
   for (int i = 0; i < MINS; ++i) cm[i] = zero + (1 << 29) - i;
 
-  int v[LPW][4];
+  int v[NSEG][E];
 #pragma unroll
-  for (int l = 0; l < LPW; ++l)
+  for (int s = 0; s < NSEG; ++s)
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int m = warp + 8 * l, e = lane * 4 + r;
-      v[l][r] = x[axis == 1 ? m * C + e : e * C + m];
+    for (int r = 0; r < E; ++r) {
+      const int m = m0 + s * LSTEP, e = e0 + r;
+      v[s][r] = x[axis == 1 ? m * C + e : e * C + m];
     }
 
   for (int it = 0; it < n_iter; ++it) {
@@ -66,46 +92,45 @@ __global__ void __launch_bounds__(256) ops_kernel(const int* __restrict__ x,
 #pragma unroll
       for (int k = 0; k < ROLLS; ++k)
 #pragma unroll
-        for (int l = 0; l < LPW; ++l) {
-          const int t = __shfl_sync(FULL, v[l][3], (lane + 31) & 31);
-          v[l][3] = v[l][2];
-          v[l][2] = v[l][1];
-          v[l][1] = v[l][0];
-          v[l][0] = t;
+        for (int s = 0; s < NSEG; ++s) {
+          const int t = __shfl_sync(FULL, v[s][E - 1], src);
+#pragma unroll
+          for (int r = E - 1; r > 0; --r) v[s][r] = v[s][r - 1];
+          v[s][0] = t;
         }
 #pragma unroll
       for (int i = 0; i < ADDS; ++i)
 #pragma unroll
-        for (int l = 0; l < LPW; ++l)
+        for (int s = 0; s < NSEG; ++s)
 #pragma unroll
-          for (int r = 0; r < 4; ++r)
-            asm volatile("add.s32 %0, %0, %1;" : "+r"(v[l][r]) : "r"(ca[i]));
+          for (int r = 0; r < E; ++r)
+            asm volatile("add.s32 %0, %0, %1;" : "+r"(v[s][r]) : "r"(ca[i]));
 #pragma unroll
       for (int i = 0; i < SELS; ++i)
 #pragma unroll
-        for (int l = 0; l < LPW; ++l)
+        for (int s = 0; s < NSEG; ++s)
 #pragma unroll
-          for (int r = 0; r < 4; ++r)
+          for (int r = 0; r < E; ++r)
             asm volatile(
                 "{ .reg .pred p; setp.gt.s32 p, %0, 0; selp.s32 %0, %0, %1, p; }"
-                : "+r"(v[l][r]) : "r"(cs[i]));
+                : "+r"(v[s][r]) : "r"(cs[i]));
 #pragma unroll
       for (int i = 0; i < MINS; ++i)
 #pragma unroll
-        for (int l = 0; l < LPW; ++l)
+        for (int s = 0; s < NSEG; ++s)
 #pragma unroll
-          for (int r = 0; r < 4; ++r)
-            asm volatile("min.s32 %0, %0, %1;" : "+r"(v[l][r]) : "r"(cm[i]));
+          for (int r = 0; r < E; ++r)
+            asm volatile("min.s32 %0, %0, %1;" : "+r"(v[s][r]) : "r"(cm[i]));
     }
   }
 
   int* o = out + (size_t)blockIdx.x * LINES * LINE;
 #pragma unroll
-  for (int l = 0; l < LPW; ++l)
+  for (int s = 0; s < NSEG; ++s)
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int m = warp + 8 * l, e = lane * 4 + r;
-      o[axis == 1 ? m * C + e : e * C + m] = v[l][r];
+    for (int r = 0; r < E; ++r) {
+      const int m = m0 + s * LSTEP, e = e0 + r;
+      o[axis == 1 ? m * C + e : e * C + m] = v[s][r];
     }
 }
 
@@ -134,7 +159,7 @@ int allwave_probe_ops(const void* x, void* out, int copies, int lines,
 #define AW_DISPATCH(LN, R, A, S, M, U)                                     \
   if (lines == LN && rolls == R && adds == A && sels == S && mins == M &&  \
       unroll == U) {                                                       \
-    ops_kernel<LN, R, A, S, M, U><<<copies, 256, 0, st>>>(                 \
+    ops_kernel<LN, R, A, S, M, U><<<copies, THREADS, 0, st>>>(             \
         static_cast<const int*>(x), static_cast<int*>(out), axis, C,       \
         n_iter, 0);                                                        \
     return (int)cudaGetLastError();                                        \
@@ -142,6 +167,11 @@ int allwave_probe_ops(const void* x, void* out, int copies, int lines,
   AW_CASES(AW_DISPATCH)
 #undef AW_DISPATCH
   return (int)cudaErrorInvalidValue;
+}
+
+// the elements of a line a thread of the (rolls, unroll) chain holds
+int allwave_probe_ops_seg_elems(int rolls, int unroll) {
+  return seg_elems(rolls, unroll);
 }
 
 }  // extern "C"

@@ -31,8 +31,17 @@ traceback over either plane to the same bytes):
 On Hopper (csrc/probe_forward.cu) one warp runs one pair: each thread
 keeps K/32 adjacent lanes of the five bands and the run band in
 registers, the neighbours at k-1 and k+1 come by warp shuffles, and no
-step needs a barrier. csrc/dense_forward.cu, the engine's kernel, keeps
-the bands in shared memory double buffers with one barrier a step.
+step needs a barrier. Only the lanes of the step's parity are updated,
+in place; V1 and V2 compute every lane's plane entry, V3 only the
+moving lanes. No loop divides: the bases are staged once a pair in two
+shared-memory tables of l_pad + K/2 bytes extended by the wrap, read at
+offsets fixed at compile time from pointers that move one byte every
+two steps, and the clamp comes from a countdown. The activity and
+diagonal tests are one range of register indices a thread and step: V1
+computes it from d and the lengths, V2 from thresholds computed once,
+with no test at all between the steps where every lane of the band
+moves and has its diagonal term. The plane goes out 8 or 16 bytes a
+store (LPT 6: 8 and 4).
 """
 
 from __future__ import annotations

@@ -12,15 +12,17 @@ chain applied TILES * STEPS times. One step is, in order:
     n_mins  x  a = min(a, 2**29 - i)        for i = 0 .. n_mins - 1
 
 On Hopper (csrc/probe_ops.cu) the tile's lines along the roll axis are
-128 elements, 4 adjacent ones a thread, one warp a line at a time, so a
-roll is one `__shfl_sync` and three register moves per line and thread.
-The ops are volatile inline PTX, so the compiler can drop none of them
-nor fold a chain of selects or mins; ptxas still merges two constant
-adds into one three-input IADD3. `copies`
-blocks each run the whole
-chain on their own copy of the tile (copies = 1 gives the latency of
-the chain, copies = 132 k fills the card); every copy equals the plain
-output. This module also holds the launcher kexp3 (x3) uses.
+128 elements, E adjacent ones a thread (its `seg_elems`: 32 where
+rolls x unroll is a multiple of 32, else 8), so a line spans 128 / E
+threads of a warp and a roll is one `__shfl_sync` for each segment a
+thread holds, its other elements renamed. The renaming is free where it
+comes back to the identity at the step loop's back edge; elsewhere
+(x2's 4r case) registers are moved there. Every roll still moves data. The ops are volatile inline PTX, so the compiler can drop none of
+them nor fold a chain of selects or mins; ptxas still merges two
+constant adds into one three-input IADD3. `copies` blocks each run the
+whole chain on their own copy of the tile (copies = 1 gives the latency
+of the chain, copies = 132 k fills the card); every copy equals the
+plain output. This module also holds the launcher kexp3 (x3) uses.
 """
 
 from __future__ import annotations

@@ -7,8 +7,9 @@ or axis 0 (its sublanes), with the step loop unrolled 1, 4 or 8 times.
 The function is the chain applied TILES * STEPS times, whatever the
 unroll. On Hopper (csrc/probe_ops.cu, see kexp2) the tile is laid out
 so that the lines along the roll axis are what a warp holds, so a roll
-along axis 0 costs what one along axis 1 does: one shuffle per line and
-thread.
+along axis 0 costs what one along axis 1 does: one shuffle for each
+segment of a line a thread holds (8 elements, or 32 where 8 x unroll
+is a multiple of 32).
 """
 
 from __future__ import annotations

@@ -61,6 +61,9 @@ OPS_REDUCED_STEPS = 64
 #: the x2 case also held against its plain version at the full 65,536
 #: steps (the one whose plain version is quick on the card)
 X2_FULL_CASE = "0r 8a 0s 0m"
+#: the x3 case the kernels line of chip_smoke.py reports: x2's adds with
+#: 8 rolls a step
+X3_ROLL_CASE = "lane  (64,128) 8r u1"
 #: blocks a probe_ops call runs to fill the card: this many per SM (one
 #: block of 8 warps already keeps an SM's INT32 lanes busy)
 FILL_PER_SM = 1
@@ -282,20 +285,26 @@ def check_ops(device, steps: int, out, cases2=None, cases3=None, copies: int = 2
                 max(_err(c, ref) for c in got), plain_ms)
 
 
-def check_x1(device, B, L, l_pad, K, out, run_cap: int = 128):
+def check_x1(device, B, L, l_pad, K, out, run_cap: int = 128, edge: bool = False):
     """x1: scores and certificates against the engine's kernel
     (dense.dense_forward), and scores, certificates and planes against
     the plain version; the traceback kernel over each variant's plane
-    gives the bytes it gives over dense_forward's."""
+    gives the bytes it gives over dense_forward's. With `edge`, the
+    batch starts with testing.batches.edge_batch's pairs (qlen = tlen =
+    l_pad, |k_end| = K - 1 both ways, an infeasible pair)."""
+    from ..testing.batches import edge_batch
     from ..wfa import dense as D
 
     pen = _pen()
-    qs, ts, ql, tl = _x1_inputs(device, B, L, l_pad)
+    if edge:
+        qs, ts, ql, tl = (_t(a, device) for a in edge_batch(np.random.RandomState(K), B, l_pad, K))
+    else:
+        qs, ts, ql, tl = _x1_inputs(device, B, L, l_pad)
     s_d, c_d, p_d = D.dense_forward(qs, ts, ql, tl, pen, K, l_pad)
     tb_d = D.dense_traceback(p_d, s_d, c_d, ql, tl, run_cap)
     del p_d
     ref, plain_ms = timed_once(lambda: K1.forward_ref("V1", qs, ts, ql, tl, pen, K, l_pad), device)
-    shape = {"B": B, "l_pad": l_pad, "K": K}
+    shape = {"B": B, "l_pad": l_pad, "K": K, **({"edge": True} if edge else {})}
     for v in K1.VARIANTS:
         s, c, p = K1.forward(v, qs, ts, ql, tl, pen, K, l_pad)
         err = max(_err(s, s_d), _err(c.to(torch.int32), c_d.to(torch.int32)), _err(s, ref[0]),

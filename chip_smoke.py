@@ -12,7 +12,9 @@ ptxas, fails if a register-band forward or replay kernel or the
 traceback spills, and prints the opcodes of the cluster sweep's and the
 cluster replay's loops; for the step probes' 36 instantiations it
 prints registers, spills, each one's step loop and its dependent chain
-a step, and fails on a spill or a kernel with no chain), drives the
+a step, and fails on a spill or a kernel with no chain; for the forward
+and op-chain probes' 12 and 17 it prints registers, spills and loops,
+and fails on a spill or a division in a loop of the forward's), drives the
 port's three engines and runs the probes:
 
 * the short-pair main path (phases 2-6): the dense forward and
@@ -996,6 +998,27 @@ def main() -> int:
           "a step probe kernel has no step chain in its machine code: "
           f"{sorted(k for k, c in step_chains.items() if c is None)}")
     report["step_chains"] = step_chains
+    # the forward and op-chain probes (csrc/probe_forward.cu, 12
+    # instantiations; csrc/probe_ops.cu, 17): registers and spills (none
+    # may spill) and their loops (x1's divide nowhere: no MUFU.RCP, the
+    # reciprocal a division by a runtime divisor compiles to)
+    for name, n_inst in (("probe_forward", 12), ("probe_ops", 17)):
+        usage = cuda_build.ptxas_usage(name)
+        for fn, u in sorted(usage.items()):
+            print("phase 1 ptxas: " + json.dumps({"kernel": _short(fn), **u}), flush=True)
+        check(len(usage) == n_inst and all(u.get("spill_stores", 1) == 0
+                                           and u.get("spill_loads", 1) == 0
+                                           for u in usage.values()),
+              f"a {name} kernel spills, or the build lacks one of its {n_inst}: {usage}")
+        report[f"{name}_ptxas"] = {_short(fn): u for fn, u in usage.items()}
+        probe_loops = [r for r in SA.report([name]) if r["instructions"] > 3]
+        for r in probe_loops:
+            print(f"phase 1 {name} loop: " + json.dumps(r), flush=True)
+        check(len({r["function"] for r in probe_loops}) == n_inst,
+              f"a {name} kernel has no loop in its machine code")
+        if name == "probe_forward":
+            check(not any(op.startswith("MUFU.RCP") for r in probe_loops for op in r["ops"]),
+                  "a loop of the forward probe (x1) divides")
     stamp(1)
 
     # -- phase 2: forward kernel against its plain version ---------------
@@ -1722,6 +1745,16 @@ def main() -> int:
     x4_c = pick(checks16, file="kexp6", variant="v0", K=P6.K)
     x2_t = max((r for r in times16 if r["variant"] == PR.X2_FULL_CASE),
                key=lambda r: r["copies"])
+    # beside them: x1 V2 at the headline's band round with the engine's
+    # forward (V0) on the same pairs in the same call, and x3's lane
+    # (64,128) 8r u1 on the filled card
+    x1_head = {v: pick(times16, file="kexp", variant=v, B=PR.X1_HEADLINE[0], K=PR.X1_HEADLINE[3])
+               for v in ("V0", "V2")}
+    x3_t = max((r for r in times16 if r["variant"] == PR.X3_ROLL_CASE), key=lambda r: r["copies"])
+
+    def probe_time(r, **extra):
+        return {**extra, "ms": r["ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "share_of_bound": r["share_of_bound"]}
     x2_c = pick(checks16, file="kexp2", variant=PR.X2_FULL_CASE, n_steps=P2.STEPS * P2.TILES)
 
     # each engine kernel's bound, from this run's inputs: the least int32
@@ -1926,6 +1959,8 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in checks16 if r["file"] == "kexp"),
             "ms": x1_t["ms"], "plain_ms": x1_c["plain_ms"],
             "bound_ms": x1_t["bound_ms"], "bound_by": x1_t["bound_by"], "library_ms": None,
+            "headline_V2": probe_time(x1_head["V2"], shape=list(PR.X1_HEADLINE[::3]),
+                                      V0_ms=x1_head["V0"]["ms"]),
         },
         {
             "name": "probe_step", "route": "cuda",
@@ -1953,6 +1988,7 @@ def main() -> int:
                                if r["file"] in ("kexp2", "kexp3")),
             "ms": x2_t["ms"], "plain_ms": x2_c["plain_ms"],
             "bound_ms": x2_t["bound_ms"], "bound_by": x2_t["bound_by"], "library_ms": None,
+            "x3": probe_time(x3_t, case=PR.X3_ROLL_CASE, copies=x3_t["copies"]),
         },
     ]
     with open(os.path.join(OUT_DIR, "report.json"), "w") as f:

@@ -716,6 +716,46 @@ def test_probe_forward_at_headline_band(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("K", [64, 128, 192, 256])
+def test_probe_forward_wrapping_pairs(cuda_device, K):
+    """csrc/probe_forward.cu at every K it takes, on pairs whose stream
+    indices wrap at both ends (qlen = tlen = l_pad; |k_end| = K - 1 both
+    ways) and an infeasible pair (|k_end| = K), at l_pad = K and 2K,
+    every variant against its plain version, the engine's forward and
+    the traceback over the engine's plane."""
+    from allwave_tpu_torch.probes import runner
+
+    for l_pad in (K, 2 * K):
+        out = []
+        runner.check_x1(cuda_device, 16, l_pad, l_pad, K, out, edge=True)
+        assert len(out) == 3 and all(r["max_abs_err"] == 0 for r in out), out
+
+
+@pytest.mark.cuda
+def test_probe_ops_every_instance(cuda_device):
+    """Every chain csrc/probe_ops.cu instantiates (kexp2's and kexp3's
+    cases) at 2 copies against chain_ref, at step counts that are and
+    are not multiples of E / rolls, with the kernel's segment width the
+    one the CPU emulation (tests/torch_probe_emulation.py) uses."""
+    from torch_probe_emulation import seg_elems
+
+    from allwave_tpu_torch.probes import kexp2 as P2
+    from allwave_tpu_torch.probes import kexp3 as P3
+    from allwave_tpu_torch.wfa import cuda_build
+
+    lib = cuda_build.library("probe_ops")
+    cases = [((P2.TB, P2.K), 1, r, a, s, m, 1) for _, r, a, s, m in P2.CASES]
+    cases += [(shape, axis, r, a, 0, 0, u) for _, shape, axis, r, a, u in P3.CASES]
+    for shape, axis, r, a, s, m, u in cases:
+        assert lib.allwave_probe_ops_seg_elems(r, u) == seg_elems(r, u)
+        x = torch.from_numpy(P2.inputs(shape, seed=r + a + u)).to(cuda_device)
+        for n in (u, 3 * u, 5 * u):
+            ref = P2.chain_ref(x, n, r, a, s, m, axis)
+            got = P2.chain(x, n, r, a, s, m, axis=axis, unroll=u, copies=2)
+            assert all(torch.equal(c, ref) for c in got), (shape, axis, r, a, s, m, u, n)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("k", [256, 512, 1024, 1536, 2048])
 def test_step_kernels_at_every_register_band(cuda_device, k):
     """csrc/probe_step.cu at every K its register kernel takes (LPT = K /
