@@ -169,9 +169,4 @@ int allwave_probe_ops(const void* x, void* out, int copies, int lines,
   return (int)cudaErrorInvalidValue;
 }
 
-// the elements of a line a thread of the (rolls, unroll) chain holds
-int allwave_probe_ops_seg_elems(int rolls, int unroll) {
-  return seg_elems(rolls, unroll);
-}
-
 }  // extern "C"

@@ -18,7 +18,7 @@ of its outputs after one call (scores, certificates and the plane's
 sums over the batch; every copy of a chain): two trees that agree give
 one digest.
 
-    python allwave_tpu_torch/probes/probe_split.py [--root DIR] [--reps N] [--only x1,x2,x3]
+    python allwave_tpu_torch/probes/probe_split.py [--root DIR] [--reps N]
 
 `--root DIR` imports the package from DIR instead of this tree, for
 example from an older commit unpacked with `git archive`, so that two
@@ -30,37 +30,16 @@ first use.
 from __future__ import annotations
 
 import argparse
-import hashlib
 import json
 import os
 import sys
-
-
-def _digest(outs) -> str:
-    h = hashlib.sha256()
-    for t in outs:
-        if t is not None:
-            h.update(t.contiguous().cpu().numpy().tobytes())
-    return h.hexdigest()[:16]
-
-
-def _x1_digest(out):
-    """Scores, certificates and, for a plane (2 l_pad, B, K), its sums
-    over the batch at each step and lane (summed on the card)."""
-    import torch
-
-    s, c, p = out
-    sums = None if p is None else p.view(torch.int16).sum(dim=1, dtype=torch.int32)
-    return _digest([s, c.to(torch.uint8), sums])
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=None, help="import the package from this tree")
     ap.add_argument("--reps", type=int, default=10)
-    ap.add_argument("--only", default="x1,x2,x3", help="comma-separated of x1, x2, x3")
     args = ap.parse_args(argv)
-    only = set(args.only.split(","))
     root = os.path.abspath(args.root or os.path.join(os.path.dirname(__file__), "..", ".."))
     sys.path.insert(0, root)
 
@@ -77,8 +56,15 @@ def main(argv=None) -> int:
     from allwave_tpu_torch.probes import kexp2 as K2
     from allwave_tpu_torch.probes import kexp3 as K3
     from allwave_tpu_torch.probes import runner as PR
-    from allwave_tpu_torch.probes.step_split import _card, _time
+    from allwave_tpu_torch.probes.step_split import _card, _digest, _time
     from allwave_tpu_torch.wfa import dense as D
+
+    def x1_digest(out):
+        """Scores, certificates and, for a plane (2 l_pad, B, K), its
+        sums over the batch at each step and lane (summed on the card)."""
+        s, c, p = out
+        sums = None if p is None else p.view(torch.int16).sum(dim=1, dtype=torch.int32)
+        return _digest([s, c.to(torch.uint8), sums])
 
     dev = torch.device("cuda", 0)
     ops_s = PR.int32_ops_s(dev)
@@ -92,34 +78,31 @@ def main(argv=None) -> int:
                           "bound_ms": b_ms, "bound_by": by, "share_of_bound": b_ms / ms,
                           "digest": d}), flush=True)
 
-    if "x1" in only:
-        pen = PR._pen()
-        for B, L, l_pad, K in (PR.X1_KEXP, PR.X1_HEADLINE):
-            qs, ts, ql, tl = PR._x1_inputs(dev, B, L, l_pad)
-            shape = {"B": B, "l_pad": l_pad, "K": K}
-            qc, tc = ql.cpu(), tl.cpu()
-            emit("x1", "V0", shape, lambda: D.dense_forward(qs, ts, ql, tl, pen, K, l_pad),
-                 _x1_digest, K1.work("V1", qc, tc, K, l_pad))
-            for v in K1.VARIANTS:
-                emit("x1", v, shape, lambda: K1.forward(v, qs, ts, ql, tl, pen, K, l_pad),
-                     _x1_digest, K1.work(v, qc, tc, K, l_pad))
-            del qs, ts
-            torch.cuda.empty_cache()
+    pen = PR._pen()
+    for B, L, l_pad, K in (PR.X1_KEXP, PR.X1_HEADLINE):
+        qs, ts, ql, tl = PR._x1_inputs(dev, B, L, l_pad)
+        shape = {"B": B, "l_pad": l_pad, "K": K}
+        qc, tc = ql.cpu(), tl.cpu()
+        emit("x1", "V0", shape, lambda: D.dense_forward(qs, ts, ql, tl, pen, K, l_pad),
+             x1_digest, K1.work("V1", qc, tc, K, l_pad))
+        for v in K1.VARIANTS:
+            emit("x1", v, shape, lambda: K1.forward(v, qs, ts, ql, tl, pen, K, l_pad),
+                 x1_digest, K1.work(v, qc, tc, K, l_pad))
+        del qs, ts
+        torch.cuda.empty_cache()
     steps = K2.STEPS * K2.TILES
     copies = PR.FILL_PER_SM * torch.cuda.get_device_properties(dev).multi_processor_count
-    if "x2" in only:
-        x = PR._t(K2.inputs(), dev)
-        for name, r, a, s, m in K2.CASES:
-            emit("x2", name, {"shape": list(x.shape), "copies": copies, "n_steps": steps},
-                 lambda: K2.chain(x, steps, r, a, s, m, copies=copies), lambda o: _digest([o]),
-                 K2.work(x.shape, steps, r, a, s, m, copies))
-    if "x3" in only:
-        xs = {n: PR._t(v, dev) for n, v in K3.inputs().items()}
-        for name, shape, axis, r, a, u in K3.CASES:
-            emit("x3", name, {"shape": list(shape), "copies": copies, "n_steps": steps},
-                 lambda: K2.chain(xs[name], steps, r, a, 0, 0, axis=axis, unroll=u,
-                                  copies=copies),
-                 lambda o: _digest([o]), K3.work(name, steps, copies))
+    x = PR._t(K2.inputs(), dev)
+    for name, r, a, s, m in K2.CASES:
+        emit("x2", name, {"shape": list(x.shape), "copies": copies, "n_steps": steps},
+             lambda: K2.chain(x, steps, r, a, s, m, copies=copies), lambda o: _digest([o]),
+             K2.work(x.shape, steps, r, a, s, m, copies))
+    xs = {n: PR._t(v, dev) for n, v in K3.inputs().items()}
+    for name, shape, axis, r, a, u in K3.CASES:
+        emit("x3", name, {"shape": list(shape), "copies": copies, "n_steps": steps},
+             lambda: K2.chain(xs[name], steps, r, a, 0, 0, axis=axis, unroll=u,
+                              copies=copies),
+             lambda o: _digest([o]), K3.work(name, steps, copies))
     return 0
 
 

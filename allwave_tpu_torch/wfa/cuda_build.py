@@ -101,7 +101,6 @@ SIGNATURES = {
     },
     "probe_ops": {
         "allwave_probe_ops": ([_P] * 2 + [_I] * 10 + [_P], _I),
-        "allwave_probe_ops_seg_elems": ([_I, _I], _I),
     },
     "probe_latency": {
         "allwave_probe_latency": ([_I, _I, _I, _P, _P], _I),

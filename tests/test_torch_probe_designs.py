@@ -108,13 +108,20 @@ OPS_CASES = ([(64, r, a, s, m, 1, 1, (K2.TB, K2.K)) for _, r, a, s, m in K2.CASE
 def test_ops_cases_are_the_kernels_instances():
     """kexp2's nine and kexp3's nine cases run the 17 chains
     csrc/probe_ops.cu instantiates (AW_CASES), with nothing left over
-    (kexp3's lane (64,128) and subl (128,64) 8r u1 share one)."""
+    (kexp3's lane (64,128) and subl (128,64) 8r u1 share one), each
+    with the segment width `seg_elems` gives the emulation."""
     src = (CSRC / "probe_ops.cu").read_text()
+    rule = re.search(r"constexpr int seg_elems\(int rolls, int unroll\) \{\s*"
+                     r"return ([^;?]*) \? (\d+) : (\d+);", src)
+    assert rule, "csrc/probe_ops.cu's seg_elems is no longer one conditional"
+    cond, wide, narrow = rule.group(1).replace("&&", "and"), int(rule.group(2)), int(rule.group(3))
     table = src[src.index("#define AW_CASES"): src.index("}  // namespace")]
     inst = [tuple(int(v) for v in t) for t in
             re.findall(r"X\((\d+), (\d+), (\d+), (\d+), (\d+), (\d+)\)", table)]
     assert len(inst) == 17 and len(OPS_CASES) == 18
     assert sorted(inst) == sorted({c[:6] for c in OPS_CASES})
+    for _, r, _, _, _, u in inst:
+        assert seg_elems(r, u) == (wide if eval(cond, {"rolls": r, "unroll": u}) else narrow)
 
 
 @pytest.mark.parametrize("case", OPS_CASES, ids=lambda c: "x".join(map(str, c[:7])))

@@ -217,7 +217,7 @@ def store_words(words, LPT: int):
 
 def seg_elems(rolls: int, unroll: int) -> int:
     """Elements of a line one thread of csrc/probe_ops.cu holds (its
-    `seg_elems`, exported as allwave_probe_ops_seg_elems): 32 where
+    `seg_elems`): 32 where
     rolls x unroll is a multiple of 32, else 8."""
     n = rolls * unroll
     return 32 if n > 0 and n % 32 == 0 else 8
