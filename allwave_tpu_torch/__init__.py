@@ -8,8 +8,7 @@ hot path runs as hand-written CUDA kernels on an NVIDIA Hopper GPU, or
 as their plain PyTorch versions on the CPU (ALLWAVE_PLATFORM=cpu).
 
 This package imports torch and never jax. Public API mirrors the
-reference library facade (allwave's lib.rs:20-26); `align_pair` is not
-ported yet.
+reference library facade (allwave's lib.rs:20-26).
 """
 
 from .core.types import (
@@ -74,6 +73,10 @@ def __getattr__(name):
         from .engine import fasta
 
         return getattr(fasta, name)
+    if name == "align_pair":
+        from .wfa.simple import align_pair
+
+        return align_pair
     if name == "KmerSketch":
         from .sketch.minhash import KmerSketch
 

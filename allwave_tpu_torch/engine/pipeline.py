@@ -114,7 +114,9 @@ class AllPairAligner:
         self.dense_config = dense_config
         self.device = resolve_device(device)
         self.pairs = build_pairs(sequences, self.sparsification, exclude_self)
-        self._orient = OrientationIndex(sequences, threads=max(int(threads), 1))
+        self._orient = OrientationIndex(
+            sequences, threads=max(int(threads), 1), device=self.device
+        )
         self._orient_eng: Optional["UnifiedAligner"] = None
 
     @classmethod

@@ -19,8 +19,16 @@ from __future__ import annotations
 from typing import Sequence as PySequence
 
 import numpy as np
+import torch
 
 from ..core.types import Sequence
+from ..device import resolve_device
+from ..sketch.membership import (
+    ORIENT_DEVICE_MIN_N,
+    OverBudget,
+    membership_counts,
+    orient_routes,
+)
 from ..sketch.minhash import jaccard, sketch_stranded
 
 ORIENTATION_KMER_SIZE = 15  # reference: alignment.rs:70
@@ -54,8 +62,10 @@ class OrientationIndex:
         k: int = ORIENTATION_KMER_SIZE,
         sketch_size: int = ORIENTATION_SKETCH_SIZE,
         threads: int = 1,
+        device=None,
     ):
         self.sequences = sequences
+        self.device = resolve_device(device)
         self.k = k
         self.sketch_size = sketch_size
         self.threads = threads
@@ -126,6 +136,7 @@ class OrientationIndex:
         target tj (the full-matrix case of _decision_submatrix)."""
         n = len(self.sequences)
         idx = np.arange(n, dtype=np.int64)
+        orient_routes.took("numpy")
         decisions, dist = self._decision_submatrix(idx, idx)
         self._distances = dist
         return decisions
@@ -227,6 +238,54 @@ class OrientationIndex:
             )
         return decisions, np.minimum(dist, 1.0)
 
+    #: ceiling for the device membership matrix (2n x U) int8 bytes;
+    #: larger inputs fall back to the blocked-bitmap NumPy path
+    DEVICE_MEMBERSHIP_MAX = 2 << 30
+
+    def _decision_matrix_device(self, device) -> np.ndarray:
+        """Device twin of _decision_matrix: sketch hashes remap to
+        dense int32 codes (host), membership rows build on the device by
+        scatter, and ALL intersection counts come from ONE int8 product
+        (2n x U) @ (U x n) (sketch.membership). Decisions use exact
+        integer cross-comparison fi*max(ru,1) >= ri*max(fu,1), which
+        provably equals the NumPy path's float64 Jaccard compare: with
+        counts <= sketch_size the candidate rationals are spaced >=
+        1/(4*sketch_size^2), ~9 orders of magnitude wider than one f64
+        ulp, so rounding can never flip the comparison. Distances (band
+        hints only) are f32. Raises OverBudget, before anything is
+        allocated on the device, when the membership matrix would
+        exceed DEVICE_MEMBERSHIP_MAX."""
+        n = len(self.sequences)
+        self._ensure_sets(range(n))
+        fsets = [self._fwd_set(i) for i in range(n)]
+        rsets = [self._rev_set(i) for i in range(n)]
+        sizes_f = np.array([s.size for s in fsets], dtype=np.int32)
+        sizes_r = np.array([s.size for s in rsets], dtype=np.int32)
+
+        cat = np.concatenate(fsets + rsets)
+        # pre-check on a conservative U estimate (hash sets rarely
+        # overlap by more than 8x) — skips the multi-second np.unique
+        # over tens of millions of hashes when the exact check below
+        # would raise anyway. A wrong guess only changes the path
+        # taken, never a decision.
+        if 2 * n * (cat.size // 8 + 1) > 4 * self.DEVICE_MEMBERSHIP_MAX:
+            raise OverBudget("membership matrix over device budget")
+        uniq, inv = np.unique(cat, return_inverse=True)
+        U = int(uniq.size)
+        if 2 * n * (U + 1) > self.DEVICE_MEMBERSHIP_MAX:
+            raise OverBudget("membership matrix over device budget")
+        S = max(int(max(sizes_f.max(), sizes_r.max())) if n else 1, 1)
+        codes = np.full((2 * n, S), U, dtype=np.int32)  # U = sentinel col
+        offs = np.concatenate(
+            ([0], np.cumsum([s.size for s in fsets + rsets]))
+        )
+        for r in range(2 * n):
+            codes[r, : offs[r + 1] - offs[r]] = inv[offs[r] : offs[r + 1]]
+        orient_routes.took("device")
+        dec, dist = _decide_device(codes, sizes_f, sizes_r, U, self.k, device)
+        self._distances = dist.cpu().numpy().astype(np.float64)
+        return dec.cpu().numpy()
+
     def _sub_lookup(self, idx: np.ndarray):
         """Positions of idx pairs inside the cached submatrix, or None
         if any pair falls outside it."""
@@ -298,12 +357,13 @@ class OrientationIndex:
         if res is None:
             return None
         self._pair_req = (idx.copy(), res[0], res[1])
+        orient_routes.took("native")
         return res
 
     def orient_batch(self, idx_pairs) -> np.ndarray:
         """Vectorized ``orient`` over a list of (query_idx, target_idx)
-        pairs via the cached all-pairs decision matrix (blocked-bitmap
-        NumPy; the device membership matmul is not ported yet). Sparse pair
+        pairs via the cached all-pairs decision matrix (MXU matmul path
+        on accelerators, blocked-bitmap NumPy otherwise). Sparse pair
         sets (<< n^2, e.g. tree sparsification at large n) compute only
         the requested query-row x target-row submatrix instead of the
         full (n, n) planes; at large n where even that is over budget,
@@ -331,14 +391,33 @@ class OrientationIndex:
                 if res is not None:
                     return res[0]
             if q_idx.size * t_idx.size * 4 < n * n:
+                orient_routes.took("submatrix")
                 dec, dist = self._decision_submatrix(q_idx, t_idx)
                 self._sub = (q_idx, t_idx, dec, dist)
                 return self._sub_lookup(idx)[0]
-            if n >= 2048 and idx.shape[0] * 16 < n * n:
-                res = self._orient_pairs_native(idx)
-                if res is not None:
-                    return res[0]
-            self._decisions = self._decision_matrix()
+            # the device path pays a fixed launch and transfer cost (and
+            # once a process, its set-up); the NumPy path grows ~n^2. The
+            # threshold is the measured crossover on the card
+            # (sketch.membership).
+            use_device = self.device.type == "cuda" and n >= ORIENT_DEVICE_MIN_N
+            if use_device:
+                try:
+                    self._decisions = self._decision_matrix_device(self.device)
+                except OverBudget:
+                    # membership matrix over the device budget (U ~ 2e7
+                    # hashes at n=10k). The request is usually sparse
+                    # there — serve it per-pair natively before
+                    # resorting to the O(n^2) NumPy matrix.
+                    res = self._orient_pairs_native(idx)
+                    if res is not None:
+                        return res[0]
+                    self._decisions = self._decision_matrix()
+            else:
+                if n >= 2048 and idx.shape[0] * 16 < n * n:
+                    res = self._orient_pairs_native(idx)
+                    if res is not None:
+                        return res[0]
+                self._decisions = self._decision_matrix()
         return self._decisions[idx[:, 0], idx[:, 1]]
 
     def distance_batch(self, idx_pairs) -> np.ndarray:
@@ -365,6 +444,7 @@ class OrientationIndex:
                 if res is not None:
                     return res[1]
             if q_idx.size * t_idx.size * 4 < n * n:
+                orient_routes.took("submatrix")
                 dec, dist = self._decision_submatrix(q_idx, t_idx)
                 self._sub = (q_idx, t_idx, dec, dist)
                 return self._sub_lookup(idx)[1]
@@ -396,3 +476,27 @@ def determine_orientation_mash(query: bytes, target: bytes):
     if fwd_j >= rev_j:
         return query, False
     return rc, True
+
+
+def _decide_device(codes, szf, szr, U, k, device):
+    """Device body of OrientationIndex._decision_matrix_device: (n, n)
+    bool decisions and f32 distances on `device`, from the (2n, S) code
+    rows (fwd sets, then rev sets) and the set sizes."""
+    n = szf.size
+    counts = membership_counts(codes, U, n, device).long()
+    # (2n, n): [i, j] = |set_i  ∩  fwd_j|
+    fi, ri = counts[:n], counts[n:]
+    szf = torch.from_numpy(szf).to(device).long()
+    szr = torch.from_numpy(szr).to(device).long()
+    fu = szf[:, None] + szf[None, :] - fi
+    ru = szr[:, None] + szf[None, :] - ri
+    dec = torch.logical_not(fi * ru.clamp(min=1) >= ri * fu.clamp(min=1))
+    fwd_j = fi.float() / fu.clamp(min=1)
+    rev_j = ri.float() / ru.clamp(min=1)
+    best_j = torch.maximum(fwd_j, rev_j)
+    dist = torch.where(
+        best_j > 0,
+        -torch.log(torch.clamp(2 * best_j / (1 + best_j), min=1e-30)) / k,
+        1.0,
+    )
+    return dec, dist.clamp(max=1.0)

@@ -21,9 +21,10 @@ Unlike the reference — which re-sketches the target for every pair
 sequence once and reuse (see allwave_tpu.orient / allwave_tpu.engine).
 The results are identical because sketching is deterministic.
 
-This copy keeps the host (NumPy) paths only: the membership-matmul
-intersection counts are exact integers either way, so every distance
-is bit-identical to the reference package's.
+On a CUDA device, from sketch.membership's measured COUNT_DEVICE_MIN_N
+sets, the pairwise intersection counts come from one int8 membership
+product; they are exact integers on either route, so every distance is
+bit-identical to the reference package's.
 """
 
 from __future__ import annotations
@@ -34,7 +35,9 @@ from typing import List, Sequence as PySequence
 import numpy as np
 
 from ..core.types import Sequence
+from ..device import resolve_device
 from ..hashing.siphash import hash_kmers
+from .membership import COUNT_DEVICE_MIN_N, OverBudget, count_routes, membership_counts
 
 DEFAULT_KMER_SIZE = 15  # reference: mash.rs:12
 DEFAULT_SKETCH_SIZE = 1000  # reference: mash.rs:15
@@ -167,6 +170,19 @@ def pairwise_intersection_counts(sketches: List[np.ndarray]) -> np.ndarray:
     total = int(sizes.sum())
     if total == 0:
         return counts
+    # the device path pays a fixed launch and transfer cost (and once a
+    # process, its set-up); the NumPy bitmap pass grows ~n^2. The
+    # threshold is the measured crossover on the card
+    # (sketch.membership); the device comes from ALLWAVE_PLATFORM, since
+    # sparsify.knn passes none.
+    device = resolve_device() if n >= COUNT_DEVICE_MIN_N else None
+    use_device = device is not None and device.type == "cuda"
+    if use_device:
+        try:
+            return _intersection_counts_device(sketches, sizes, device)
+        except OverBudget:
+            pass  # fall through to the NumPy bitmap path
+    count_routes.took("numpy")
     all_vals = np.concatenate(sketches)
     uniq, inv = np.unique(all_vals, return_inverse=True)
     offs = np.zeros(n + 1, dtype=np.int64)
@@ -229,3 +245,30 @@ def format_distance_matrix(
         row = "".join(f"\t{matrix[i, j]:.6f}" for j in range(len(sequences)))
         lines.append(f"{s.id}{row}")
     return "\n".join(lines) + "\n"
+
+
+def _intersection_counts_device(sketches, sizes, device) -> np.ndarray:
+    """Device twin of the bitmap pass: hashes remap to dense int32 codes
+    (host), membership rows build on the device by scatter, and all
+    pairwise counts come from ONE (n x U) @ (U x n) int8 product
+    (sketch.membership) — exact integers, so downstream float64
+    Jaccard/mash values are bit-identical to the NumPy path. Raises
+    OverBudget, before anything is allocated on the device, on the
+    reference's budget check (its padded n and U)."""
+    n = len(sketches)
+    all_vals = np.concatenate(sketches)
+    uniq, inv = np.unique(all_vals, return_inverse=True)
+    U = int(uniq.size)
+    n_pad = -(-n // 64) * 64
+    u_pad = -(-(U + 1) // 16384) * 16384
+    if n_pad * (u_pad + 1) > (2 << 30):
+        raise OverBudget("membership matrix over device budget")
+    S = max(int(sizes.max()), 1)
+    codes = np.full((n, S), U, dtype=np.int32)
+    offs = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(sizes, out=offs[1:])
+    for r in range(n):
+        codes[r, : offs[r + 1] - offs[r]] = inv[offs[r] : offs[r + 1]]
+    count_routes.took("device")
+    counts = membership_counts(codes, U, n, device).cpu().numpy()
+    return counts.astype(np.int64)

@@ -118,6 +118,30 @@ class DenseBandAligner:
         #: bucket, so it is uploaded once per run. The strong list ref
         #: keeps the id() from being recycled.
         self._pool_cache: Dict[Tuple[int, int], Tuple[object, torch.Tensor]] = {}
+        #: (k, run_cap, l_pad) -> parallel.mesh.sharded_dense_step
+        self._sharded_steps: Dict[Tuple[int, int, int], object] = {}
+
+    def _use_mesh(self) -> bool:
+        """Fan each dispatch over every local GPU (reference:
+        allwave_tpu/wfa/dense_engine.py _use_mesh): more than one local
+        device, unless ALLWAVE_SINGLE_DEVICE=1."""
+        if os.environ.get("ALLWAVE_SINGLE_DEVICE") == "1":
+            return False
+        from ..parallel.mesh import local_devices
+
+        return len(local_devices(self.device)) > 1
+
+    def _sharded_fn(self, k: int, run_cap: int, l_pad: int):
+        key = (k, run_cap, l_pad)
+        fn = self._sharded_steps.get(key)
+        if fn is None:
+            from ..parallel.mesh import local_devices, sharded_dense_step
+
+            fn = sharded_dense_step(
+                local_devices(self.device), self.pen, k, l_pad, run_cap
+            )
+            self._sharded_steps[key] = fn
+        return fn
 
     def _round_k(self, k: int) -> int:
         """Smallest accepted band width >= k."""
@@ -379,17 +403,18 @@ class DenseBandAligner:
         copied to the host."""
         pool_dev, qidx, tidx, qlens, tlens = pool
         dev = self.device
-        return D_.dense_align_packed(
+        args = (
             pool_dev,
             torch.from_numpy(qidx[group]).to(dev),
             torch.from_numpy(tidx[group]).to(dev),
             torch.from_numpy(qlens[group]).to(dev),
             torch.from_numpy(tlens[group]).to(dev),
-            self.pen,
-            k,
-            l_pad,
-            run_cap,
         )
+        if self._use_mesh():
+            # fan the pair shard over every local GPU (pool replicated,
+            # indices sharded; no traffic between GPUs in the hot loop)
+            return self._sharded_fn(k, run_cap, l_pad)(*args)
+        return D_.dense_align_packed(*args, self.pen, k, l_pad, run_cap)
 
     def _collect_group(
         self, group, packed, results, stats, k, run_cap, l_pad,

@@ -71,14 +71,39 @@ port's three engines and runs the probes:
   walks' and the step probes' chain bounds are made of (a dependent
   shared-memory load, an ALU instruction, a device-memory load that
   misses L2, a shuffle, a block's barrier at each block size the step
-  kernels run).
+  kernels run);
+* orientation and MinHash counts on the card (phase 17,
+  allwave_tpu_torch/sketch/membership.py: int8 membership rows and one
+  `torch._int_mm`): the device decisions equal the NumPy path's and its
+  f32 distances agree within 1e-5 relative on the headline's,
+  3_giant099's and 4_tree_mixed's sets and a synthetic 1024 x 1 kb,
+  the device counts equal the NumPy counts at every n of a ladder up to
+  2048, the tree:2:1:0.02 pair list over 2048 x 1 kb is the same on
+  both routes, both routes are timed over a ladder of n and their
+  one-time set-up in a fresh process: the crossovers the thresholds of
+  sketch/membership.py were set from;
+* bench.py's configs 3_giant099 (-p giant:0.99) and 4_tree_mixed
+  (-p tree:2:1:0.02), 3_giant099 once more with -p none (65,280 pairs)
+  and a synthetic 512 x 1 kb with -p none (261,632 pairs), each through
+  the CLI in a fresh process, whose routes must be the thresholds'
+  (the 512 set's orientation on the device, the others' below their
+  thresholds): no failed pair, every record's CIGAR replays; a warm
+  pipeline run of each bench config, its results replayed; an oracle
+  sample's scores (phase 18);
+* pair sharding (phase 19): `parallel.mesh.sharded_dense_step` over
+  [cuda:0] x 2 and x 3 at the headline's dispatch shape gives the single
+  launch's bytes, two processes joined by a gloo group
+  (`parallel.dist.DistributedAllPairAligner`, both on cuda:0) write
+  shards whose merged sorted lines equal phase 4's PAF, and
+  `align_pair` gives the oracle's score.
 
 Each wrapper counts its launches by shape; every count is set to 0 just
 before a path is driven and read just after. Every kernel is held to its
 plain version with tolerance 0: scores, certificates, band states, plane
 bytes, walk states and run buffers must be equal, because the tie-break
 contract (docs/TIEBREAK.md) leaves no room. Every phase prints its result
-and its seconds on its own line; any failure exits non-zero. The last
+and its seconds on its own line, and the smoke's total seconds follow
+phase 19; any failure exits non-zero. The last
 three lines are the card's name and power limit, a JSON object with one
 entry per kernel (its time beside its plain version's and its bound: the
 larger of its least int32 operations over the card's int32 rate and its
@@ -666,6 +691,71 @@ def _paf_records(path):
         return [line.rstrip("\n").split("\t") for line in f if line.strip()]
 
 
+def validate_paf(recs, seqs, chunk=4096) -> int:
+    """Replay every PAF record's CIGAR against its (oriented) sequences,
+    with core.cigar.validate_cigar's checks: the CIGAR parses, every
+    run's count is positive, it consumes the whole query and target,
+    and every '='/'M' base matches and every 'X' base does not. NumPy
+    replays `chunk` records at a time; the first record at fault raises
+    ValueError. Returns the number of records without a CIGAR (failed
+    pairs)."""
+    import re
+
+    import numpy as np
+
+    from allwave_tpu_torch.orient.orientation import reverse_complement
+
+    fwd = {s.id: s.seq for s in seqs}
+    rev = {}
+    run_re = re.compile(r"(\d+)([=XMID])")
+    todo = [f for f in recs if f[13].startswith("cg:Z:") and f[13] != "cg:Z:"]
+    for c0 in range(0, len(todo), chunk):
+        part = todo[c0:c0 + chunk]
+        qs, ts, counts, ops, n_runs = [], [], [], [], []
+        for f in part:
+            q = fwd[f[0]]
+            if f[4] == "-":
+                q = rev[f[0]] if f[0] in rev else rev.setdefault(f[0], reverse_complement(q))
+            qs.append(q)
+            ts.append(fwd[f[5]])
+            runs = run_re.findall(f[13], 5)
+            if sum(len(c) + 1 for c, _ in runs) != len(f[13]) - 5:
+                raise ValueError(f"{f[0]} {f[5]}: unparsable CIGAR {f[13][:80]}")
+            counts.extend(int(c) for c, _ in runs)
+            ops.append("".join(o for _, o in runs))
+            n_runs.append(len(runs))
+        counts = np.array(counts, np.int64)
+        op = np.frombuffer("".join(ops).encode(), np.uint8)
+        rec = np.repeat(np.arange(len(part)), n_runs)
+        both = (op == ord("=")) | (op == ord("X")) | (op == ord("M"))
+        cq = (both | (op == ord("I"))) * counts
+        ct = (both | (op == ord("D"))) * counts
+        q_len = np.array([len(q) for q in qs], np.int64)
+        t_len = np.array([len(t) for t in ts], np.int64)
+        bad = ((np.bincount(rec, cq, len(part)) != q_len)
+               | (np.bincount(rec, ct, len(part)) != t_len))
+        bad[rec[counts <= 0]] = True
+        if bad.any():
+            f = part[int(np.argmax(bad))]
+            raise ValueError(f"{f[0]} {f[5]}: CIGAR does not cover the pair or has a zero count")
+        # each run's first query and target base in the chunk's buffers
+        first_run = np.cumsum(n_runs) - n_runs
+        q_at = np.cumsum(cq) - cq
+        t_at = np.cumsum(ct) - ct
+        q_at += (np.cumsum(q_len) - q_len - q_at[first_run])[rec]
+        t_at += (np.cumsum(t_len) - t_len - t_at[first_run])[rec]
+        n = counts[both]
+        within = np.arange(int(n.sum())) - np.repeat(np.cumsum(n) - n, n)
+        eq = (np.frombuffer(b"".join(qs), np.uint8)[np.repeat(q_at[both], n) + within]
+              == np.frombuffer(b"".join(ts), np.uint8)[np.repeat(t_at[both], n) + within])
+        wrong = eq != np.repeat(op[both] != ord("X"), n)
+        if wrong.any():
+            f = part[int(rec[both][np.repeat(np.arange(n.size), n)[np.argmax(wrong)]])]
+            raise ValueError(f"{f[0]} {f[5]}: CIGAR '=' over mismatching or 'X' over "
+                             "matching bases")
+    return len(recs) - len(todo)
+
+
 def check_alignments(seqs, results, pen, n_sample, seed):
     """Every result valid and its CIGAR's score the reported one;
     n_sample pairs oracle-exact (the Python oracle's work grows as s²,
@@ -712,9 +802,10 @@ def check_alignments(seqs, results, pen, n_sample, seed):
     return failed
 
 
-def run_pipeline(seqs, scores_str):
-    """AllPairAligner with mash orientation over all pairs; returns
-    (results, seconds)."""
+def run_pipeline(seqs, scores_str, sparsification=None):
+    """AllPairAligner with mash orientation over the pairs the
+    sparsification keeps (all pairs by default); returns (results,
+    seconds)."""
     import torch
 
     from allwave_tpu_torch.core.scores import parse_scores
@@ -723,7 +814,8 @@ def run_pipeline(seqs, scores_str):
     out = []
     t0 = time.perf_counter()
     aligner = AllPairAligner(
-        seqs, parse_scores(scores_str), exclude_self=True, use_mash_orientation=True
+        seqs, parse_scores(scores_str), exclude_self=True, use_mash_orientation=True,
+        sparsification=sparsification,
     )
     aligner.for_each_with_callback(out.append)
     if aligner.device.type == "cuda":
@@ -826,6 +918,398 @@ def _wf_span_mode(short_name: str):
     return short_name.split("<", 1)[1].split(",")[0].strip() in ("true", "(bool)1", "1")
 
 
+def merge_cases(cases):
+    """bench.py's _merge_cases: the sequences of several synthetic cases
+    with re-keyed ids."""
+    from allwave_tpu_torch.core.types import Sequence
+
+    return [Sequence(f"c{ci}_{s.id}", s.seq) for ci, case in enumerate(cases)
+            for s in case.sequences]
+
+
+def bench_sets():
+    """bench.py's configs 3_giant099 (256 x 2 kb, seed 13) and
+    4_tree_mixed (86 x 800 + 85 x 1800 + 85 x 3000, seeds 14-16), both at
+    bench.py's 2% (`cfg2`)."""
+    from allwave_tpu_torch.testing.synth import MutationConfig, make_test_case
+
+    cfg2 = MutationConfig(0.02, 0.0005, 0.0005)
+    giant = make_test_case(13, 256, 2000, cfg2).sequences
+    mixed = merge_cases([make_test_case(14, 86, 800, cfg2), make_test_case(15, 85, 1800, cfg2),
+                         make_test_case(16, 85, 3000, cfg2)])
+    return giant, mixed
+
+
+def best_ms(fn, reps):
+    """The least host wall time of `reps` calls, each ended by a device
+    synchronize (the device paths copy their results to the host)."""
+    import torch
+
+    best = None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        best = ms if best is None else min(best, ms)
+    return best
+
+
+def crossover(rows, setup_ms=0.0):
+    """The least n of the ladder from which the device route, with
+    `setup_ms` added, is faster than NumPy at every larger n (None if it
+    never is)."""
+    n = None
+    for r in sorted(rows, key=lambda r: -r["n"]):
+        if r["device_ms"] + setup_ms >= r["numpy_ms"]:
+            break
+        n = r["n"]
+    return n
+
+
+#: a fresh process: the device routes' one-time set-up on a device whose
+#: context exists (the context itself is paid by any first use), as the
+#: first call's time less a warm call's: the counts route (scatter,
+#: `torch._int_mm` through cuBLASLt) at n = 32, then orientation at
+#: n = 16, whose first call adds its decision and distance kernels
+SETUP_WORKER = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+from allwave_tpu_torch.orient.orientation import OrientationIndex
+from allwave_tpu_torch.sketch import minhash as MH
+from allwave_tpu_torch.testing.synth import MutationConfig, make_test_case
+
+dev = torch.device("cuda", 0)
+seqs = make_test_case(21, 32, 1000, MutationConfig(0.02, 0.0005, 0.0005)).sequences
+torch.zeros(1, device=dev)
+torch.cuda.synchronize()
+
+def ms(fn):
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+sk = [np.unique(MH.sketch_canonical(s.seq, 15, 1000)) for s in seqs]
+sizes = np.array([x.size for x in sk], dtype=np.int64)
+counts = lambda: MH._intersection_counts_device(sk, sizes, dev)
+cold_c = ms(counts)
+warm_c = min(ms(counts) for _ in range(3))
+idx = OrientationIndex(seqs[:16], device=dev)
+for i in range(16):
+    idx._fwd_set(i)
+    idx._rev_set(i)
+orient = lambda: idx._decision_matrix_device(dev)
+cold_o = ms(orient)
+warm_o = min(ms(orient) for _ in range(3))
+print(json.dumps({"counts_first_ms": cold_c, "counts_warm_ms": warm_c,
+                  "orient_first_ms": cold_o, "orient_warm_ms": warm_o,
+                  "counts_setup_ms": cold_c - warm_c,
+                  "orient_setup_ms": cold_c - warm_c + cold_o - warm_o}))
+"""
+
+
+def synthetic_set():
+    """2048 x 1 kb at bench.py's 2% (seed 21): phase 17's ladders and
+    1024 set, phase 18's 512 set."""
+    from allwave_tpu_torch.testing.synth import MutationConfig, make_test_case
+
+    return make_test_case(21, 2048, 1000, MutationConfig(0.02, 0.0005, 0.0005)).sequences
+
+
+def phase17(dev, headline, giant, mixed, synth):
+    """Orientation decisions and MinHash counts on the card: the device
+    routes against the NumPy paths on the headline, 3_giant099's and
+    4_tree_mixed's sets and a synthetic 1024 x 1 kb at 2% (decisions and
+    counts exact, f32 distances within rtol 1e-5), the tree:2:1:0.02
+    pair list over 2048 x 1 kb on both routes, both routes timed over a
+    ladder of n, host remap included (sketch sets are built before
+    either path is timed), and the routes' one-time set-up in a fresh
+    process: the crossovers the thresholds of sketch/membership.py were
+    set from (a fresh process's: the set-up added to the device's
+    time; and, for comparison, a warm process's)."""
+    import numpy as np
+
+    from allwave_tpu_torch.orient.orientation import OrientationIndex
+    from allwave_tpu_torch.sketch import membership as MB
+    from allwave_tpu_torch.sketch import minhash as MH
+    from allwave_tpu_torch.sparsify.knn import extract_tree_pairs
+
+    proc = subprocess.run([sys.executable, "-c", SETUP_WORKER, HERE], capture_output=True,
+                          text=True, timeout=300)
+    check(proc.returncode == 0, f"phase 17: the set-up worker failed:\n{proc.stderr[-3000:]}")
+    setup = json.loads(proc.stdout.strip().splitlines()[-1])
+    print("phase 17 set-up: " + json.dumps(setup), flush=True)
+
+    def index(seqs):
+        idx = OrientationIndex(seqs, device=dev)
+        for i in range(len(seqs)):
+            idx._fwd_set(i)
+            idx._rev_set(i)
+        return idx
+
+    out = {"setup": setup, "sets": [], "orient_ladder": [], "counts_ladder": []}
+    index(headline[:32])._decision_matrix_device(dev)  # this process's set-up
+    for name, seqs in (("headline", headline), ("3_giant099", giant),
+                       ("4_tree_mixed", mixed), ("synthetic_1024", synth[:1024])):
+        n = len(seqs)
+        idx = index(seqs)
+        got = {}
+        numpy_ms = best_ms(lambda: got.update(numpy=idx._decision_matrix()), 1)
+        dist_np = idx._distances
+        device_ms = best_ms(lambda: got.update(device=idx._decision_matrix_device(dev)), 1)
+        dist_dev = idx._distances
+        check(np.array_equal(got["device"], got["numpy"]),
+              f"phase 17 {name}: device decisions differ")
+        check(np.allclose(dist_dev, dist_np, rtol=1e-5, atol=1e-7),
+              f"phase 17 {name}: device distances differ beyond f32")
+        hashes = np.concatenate([idx._fwd_set(i) for i in range(n)]
+                                + [idx._rev_set(i) for i in range(n)])
+        U = int(np.unique(hashes).size)
+        row = {"set": name, "n": n, "U": U, "membership_bytes": 2 * n * (U + 1),
+               "reversed": int(got["numpy"].sum()), "numpy_ms": numpy_ms, "device_ms": device_ms,
+               "dist_max_rel_err": float(np.max(np.abs(dist_dev - dist_np)
+                                                / np.maximum(dist_np, 1e-12)))}
+        print("phase 17 orientation: " + json.dumps(row), flush=True)
+        out["sets"].append(row)
+    check(out["sets"][-1]["membership_bytes"] <= OrientationIndex.DEVICE_MEMBERSHIP_MAX,
+          "phase 17: the synthetic 1024 set is over the membership budget")
+
+    for n in (4, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256, 384, 512):
+        idx = index(synth[:n])
+        reps = 5 if n <= 64 else 3 if n <= 256 else 1
+        row = {"n": n, "numpy_ms": best_ms(idx._decision_matrix, reps),
+               "device_ms": best_ms(lambda: idx._decision_matrix_device(dev), reps)}
+        print("phase 17 orientation ms: " + json.dumps(row), flush=True)
+        out["orient_ladder"].append(row)
+    out["orient_ladder"].append({k: out["sets"][-1][k] for k in ("n", "numpy_ms", "device_ms")})
+
+    sketches = [np.unique(MH.sketch_canonical(s.seq, 15, 1000)) for s in synth]
+    sizes = np.array([sk.size for sk in sketches], dtype=np.int64)
+    min_n = MH.COUNT_DEVICE_MIN_N
+    try:
+        MH.COUNT_DEVICE_MIN_N = 1 << 30  # the NumPy bitmap pass
+        for n in (4, 8, 12, 16, 24, 32, 64, 128, 256, 384, 512, 1024, 2048):
+            got = {}
+            reps = 5 if n <= 64 else 3 if n <= 256 else 1
+            row = {"n": n, "numpy_ms": best_ms(
+                lambda: got.update(numpy=MH.pairwise_intersection_counts(sketches[:n])), reps),
+                "device_ms": best_ms(lambda: got.update(device=MH._intersection_counts_device(
+                    sketches[:n], sizes[:n], dev)), reps)}
+            check(np.array_equal(got["numpy"], got["device"]),
+                  f"phase 17: device intersection counts differ at n = {n}")
+            print("phase 17 counts ms: " + json.dumps(row), flush=True)
+            out["counts_ladder"].append(row)
+        MB.count_routes.reset()
+        pairs_np = extract_tree_pairs(synth, 2, 1, 0.02, 15)
+    finally:
+        MH.COUNT_DEVICE_MIN_N = min_n
+    pairs_dev = extract_tree_pairs(synth, 2, 1, 0.02, 15)
+    check(MB.count_routes.counts == {"numpy": 1, "device": 1},
+          f"phase 17: the tree pair lists took routes {MB.count_routes.counts}")
+    check(np.array_equal(pairs_np, pairs_dev), "phase 17: tree:2:1:0.02 pair lists differ")
+    out["tree_pairs_2048"] = int(pairs_dev.shape[0])
+    out["crossover"] = {
+        "orient_fresh_n": crossover(out["orient_ladder"], setup["orient_setup_ms"]),
+        "orient_warm_n": crossover(out["orient_ladder"]),
+        "orient_threshold": MB.ORIENT_DEVICE_MIN_N,
+        "counts_fresh_n": crossover(out["counts_ladder"], setup["counts_setup_ms"]),
+        "counts_warm_n": crossover(out["counts_ladder"]),
+        "counts_threshold": MB.COUNT_DEVICE_MIN_N,
+    }
+    print("phase 17 crossover: " + json.dumps(
+        {**out["crossover"], "tree_pairs_2048": out["tree_pairs_2048"]}), flush=True)
+    return out
+
+
+#: the CLI in a fresh process, as a user runs it: its exit code, the
+#: routes its orientation and MinHash requests took, and its seconds
+#: (imports apart; the CUDA context and every one-time set-up included)
+CLI_WORKER = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+t0 = time.perf_counter()
+from allwave_tpu_torch import cli
+from allwave_tpu_torch.sketch import membership as MB
+t1 = time.perf_counter()
+rc = cli.main(sys.argv[2:])
+print(json.dumps({"rc": rc, "import_s": t1 - t0, "cli_s": time.perf_counter() - t1,
+                  "orientation": MB.orient_routes.counts, "counts": MB.count_routes.counts}))
+"""
+
+
+def oracle_sample_paf(recs, seqs, pen, n_sample, seed):
+    """n_sample PAF records' CIGARs are the oracle's, and so their scores."""
+    import numpy as np
+
+    from allwave_tpu_torch.core.cigar import cigar_string_to_bytes
+    from allwave_tpu_torch.orient.orientation import reverse_complement
+    from allwave_tpu_torch.testing.dense import cigar_score
+    from allwave_tpu_torch.wfa.reference_impl import wfa_align
+
+    by_id = {s.id: s.seq for s in seqs}
+    rng = np.random.RandomState(seed)
+    for j in rng.choice(len(recs), size=min(n_sample, len(recs)), replace=False):
+        f = recs[int(j)]
+        q = by_id[f[0]] if f[4] == "+" else reverse_complement(by_id[f[0]])
+        score, cig = wfa_align(q, by_id[f[5]], pen)
+        got = cigar_string_to_bytes(f[13][5:])
+        check(cigar_score(got, pen) == score, f"oracle score {score} != {cigar_score(got, pen)}")
+        check(np.array_equal(np.asarray(cig, np.uint8), got),
+              f"oracle CIGAR differs for pair {f[0]},{f[5]}")
+
+
+def phase18(pen, giant, mixed, synth512):
+    """bench.py's configs 3_giant099 (-p giant:0.99) and 4_tree_mixed
+    (-p tree:2:1:0.02), 3_giant099's sequences once more with -p none
+    (65,280 pairs), and a synthetic 512 x 1 kb with -p none (261,632
+    pairs), each through the CLI in a fresh process: the routes a user's
+    run takes (only the 512 set's full orientation matrix is at the
+    device threshold; 4_tree_mixed's 256 MinHash sets and 3_giant099's
+    256 orientation sets are below theirs), no failed pair, every
+    record's CIGAR replays; then a warm pipeline run of each bench
+    config (its results replayed, an oracle sample's scores), and an
+    oracle sample of the 512 set's records."""
+    from allwave_tpu_torch.engine.fasta import write_fasta
+    from allwave_tpu_torch.sparsify.pairs import parse_sparsification
+
+    rows = []
+    numpy_, native, device = {"numpy": 1}, {"native": 1}, {"device": 1}
+    for name, seqs, spec, want in (
+            ("3_giant099", giant, "giant:0.99", {"orientation": native, "counts": {}}),
+            ("4_tree_mixed", mixed, "tree:2:1:0.02", {"orientation": native, "counts": numpy_}),
+            ("3_giant099_none", giant, "none", {"orientation": numpy_, "counts": {}}),
+            ("synthetic_512_none", synth512, "none", {"orientation": device, "counts": {}})):
+        fasta = os.path.join(OUT_DIR, f"{name}.fa")
+        paf = os.path.join(OUT_DIR, f"{name}.paf")
+        write_fasta(fasta, seqs)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", CLI_WORKER, HERE, "-i", fasta, "-p", spec, "-s", SCORES,
+             "-o", paf, "--no-progress"], capture_output=True, text=True, timeout=600)
+        process_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"phase 18 {name}: the CLI process failed:\n"
+              f"{proc.stderr[-3000:]}")
+        fresh = json.loads(proc.stdout.strip().splitlines()[-1])
+        check(fresh["rc"] == 0, f"phase 18 {name}: cli exit code {fresh['rc']}")
+        routes = {"orientation": fresh["orientation"], "counts": fresh["counts"]}
+        check(routes == want, f"phase 18 {name}: a fresh process took routes {routes}, "
+              f"not {want}")
+        recs = _paf_records(paf)
+        t0 = time.perf_counter()
+        empty = validate_paf(recs, seqs)
+        check(empty == 0, f"phase 18 {name}: {empty} failed pairs in the CLI output")
+        if spec == "none":
+            check(len(recs) == len(seqs) * (len(seqs) - 1),
+                  f"phase 18 {name}: {len(recs)} records")
+            os.remove(paf)  # tens of MB
+        row = {"config": name, "p": spec, "n": len(seqs), "pairs": len(recs), "failed": empty,
+               "fresh_routes": routes, "fresh_cli_s": fresh["cli_s"],
+               "fresh_import_s": fresh["import_s"], "fresh_process_s": process_s}
+        if name.startswith("synthetic"):
+            oracle_sample_paf(recs, seqs, pen, n_sample=2, seed=18)
+        else:
+            res, warm_s = run_pipeline(seqs, SCORES, parse_sparsification(spec))
+            check(len(res) == len(recs),
+                  f"phase 18 {name}: {len(res)} results, {len(recs)} records")
+            failed = check_alignments(seqs, res, pen, n_sample=2, seed=18)
+            check(failed == 0, f"phase 18 {name}: {failed} failed pairs")
+            row.update(warm_s=warm_s, warm_alignments_per_s=len(res) / warm_s)
+        row["check_s"] = time.perf_counter() - t0
+        print("phase 18 config: " + json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
+DIST_WORKER = r"""
+import sys
+sys.path.insert(0, sys.argv[6])
+init, nproc, rank, fasta, prefix = sys.argv[1:6]
+
+import torch.distributed as dist
+
+from allwave_tpu_torch.core.scores import parse_scores
+from allwave_tpu_torch.core.types import NoSparsification
+from allwave_tpu_torch.engine.fasta import read_fasta
+from allwave_tpu_torch.parallel.dist import DistributedAllPairAligner, init_distributed
+
+init_distributed(init, int(nproc), int(rank))
+seqs = read_fasta(fasta)
+al = DistributedAllPairAligner(seqs, parse_scores(sys.argv[7]), exclude_self=True,
+                               use_mash_orientation=True, sparsification=NoSparsification())
+al.run_to_paf_shard(prefix)
+print(f"rank {rank}: {al.pair_count()} pairs")
+dist.destroy_process_group()
+"""
+
+
+def phase19(dev, pen, headline, headline_fasta, headline_paf):
+    """Sharding: sharded_dense_step over [cuda:0] x 2 and x 3 (an uneven
+    split) at the headline's dispatch shape gives the single call's
+    bytes; two processes joined by a gloo group run
+    DistributedAllPairAligner on the headline's FASTA, both on cuda:0,
+    and their merged shards' sorted lines equal phase 4's; align_pair on
+    one headline pair gives the oracle's score."""
+    import socket
+
+    import allwave_tpu_torch as aw
+    from allwave_tpu_torch.core.scores import parse_scores
+    from allwave_tpu_torch.parallel.check import dispatch_inputs, sharded_matches_single
+    from allwave_tpu_torch.parallel.dist import merge_paf_shards
+    from allwave_tpu_torch.wfa.reference_impl import wfa_align
+
+    out = {}
+    inputs = dispatch_inputs(headline, dev, 4096)
+    for nd in (2, 3):
+        check(sharded_matches_single([dev] * nd, inputs),
+              f"phase 19: sharded bytes over {nd} devices differ")
+    out["sharded"] = {"B": int(inputs[1].shape[0]), "K": 192, "l_pad": 1024, "run_cap": 128,
+                      "devices": [2, 3], "identical": True}
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    prefix = os.path.join(OUT_DIR, "dist")
+    env = dict(os.environ, ALLWAVE_PLATFORM=dev.type)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", DIST_WORKER, f"tcp://127.0.0.1:{port}", "2", str(rank),
+         headline_fasta, prefix, HERE, SCORES],
+        cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for rank in range(2)]
+    try:
+        for p in procs:
+            so, se = p.communicate(timeout=300)
+            check(p.returncode == 0, f"phase 19: a gloo worker failed:\n{so}\n{se[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    dist_s = time.perf_counter() - t0
+    merged = os.path.join(OUT_DIR, "dist_merged.paf")
+    merge_paf_shards(prefix, 2, merged)
+    with open(merged) as f:
+        merged_lines = sorted(f)
+    with open(headline_paf) as f:
+        want = sorted(f)
+    check(merged_lines == want, "phase 19: the merged gloo shards differ from phase 4's PAF")
+    out["gloo"] = {"processes": 2, "lines": len(merged_lines), "seconds": dist_s,
+                   "equal_to_phase4": True}
+
+    q, t = headline[0], headline[1]
+    res = aw.align_pair(q, t, 0, 1, parse_scores(SCORES))
+    qb = aw.reverse_complement(q.seq) if res.is_reverse else q.seq
+    oracle, _ = wfa_align(qb, t.seq, pen)
+    check(res.score == oracle, f"phase 19: align_pair score {res.score} != oracle {oracle}")
+    out["align_pair"] = {"score": res.score, "oracle": oracle}
+    print("phase 19 sharding: " + json.dumps(out), flush=True)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -847,7 +1331,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     report = {}
     phase_s = {}
-    t_last = [time.perf_counter()]
+    t_start = time.perf_counter()
+    t_last = [t_start]
 
     def stamp(phase) -> None:
         now = time.perf_counter()
@@ -1082,9 +1567,7 @@ def main() -> int:
 
     # -- phase 4: the main path on bench.py's headline data ---------------
     from allwave_tpu_torch import cli
-    from allwave_tpu_torch.core.cigar import cigar_string_to_bytes, validate_cigar
     from allwave_tpu_torch.core.scores import parse_scores
-    from allwave_tpu_torch.orient.orientation import reverse_complement
     from allwave_tpu_torch.testing.synth import MutationConfig, make_test_case
     from allwave_tpu_torch.wfa.params import resolve_penalties
 
@@ -1109,16 +1592,7 @@ def main() -> int:
           f"main path did not launch both kernels: {launches}")
     recs = _paf_records(paf)
     check(len(recs) == 128 * 127, f"{len(recs)} PAF records, expected 16256")
-    by_id = {s.id: s.seq for s in seqs}
-    empty = 0
-    for f in recs:
-        if not f[13].startswith("cg:Z:") or f[13] == "cg:Z:":
-            empty += 1
-            continue
-        q = by_id[f[0]]
-        if f[4] == "-":
-            q = reverse_complement(q)
-        validate_cigar(cigar_string_to_bytes(f[13][5:]), q, by_id[f[5]])
+    empty = validate_paf(recs, seqs)
     check(empty == 0, f"{empty} failed pairs in the CLI output")
     res, warm_s = run_pipeline(seqs, SCORES)
     check(len(res) == 128 * 127, f"{len(res)} results from the pipeline")
@@ -1309,16 +1783,7 @@ def main() -> int:
     check(fallbacks100 == 12, f"{fallbacks100} of 12 pairs fell back from the wavefront engine")
     recs = _paf_records(paf100)
     check(len(recs) == 12, f"{len(recs)} PAF records on 5_100kb, expected 12")
-    by_id = {sq.id: sq.seq for sq in seqs100}
-    empty = 0
-    for f in recs:
-        if not f[13].startswith("cg:Z:") or f[13] == "cg:Z:":
-            empty += 1
-            continue
-        q = by_id[f[0]]
-        if f[4] == "-":
-            q = reverse_complement(q)
-        validate_cigar(cigar_string_to_bytes(f[13][5:]), q, by_id[f[5]])
+    empty = validate_paf(recs, seqs100)
     check(empty == 0, f"{empty} failed pairs in the 5_100kb CLI output")
     res100, warm100_s = run_pipeline(seqs100, SCORES)
     check(len(res100) == 12, f"{len(res100)} results from the pipeline on 5_100kb")
@@ -1548,16 +2013,7 @@ def main() -> int:
           f"the wavefront path did not launch both kernels: {launches_wf}")
     recs = _paf_records(paf5b)
     check(len(recs) == 56, f"{len(recs)} PAF records on 5b_100kb_lowdiv, expected 56")
-    by_id = {sq.id: sq.seq for sq in seqs5b}
-    empty = 0
-    for f in recs:
-        if not f[13].startswith("cg:Z:") or f[13] == "cg:Z:":
-            empty += 1
-            continue
-        q = by_id[f[0]]
-        if f[4] == "-":
-            q = reverse_complement(q)
-        validate_cigar(cigar_string_to_bytes(f[13][5:]), q, by_id[f[5]])
+    empty = validate_paf(recs, seqs5b)
     check(empty == 0, f"{empty} failed pairs in the 5b_100kb_lowdiv CLI output")
     res5b, warm5b_s = run_pipeline(seqs5b, SCORES)
     check(len(res5b) == 56, f"{len(res5b)} results from the pipeline on 5b_100kb_lowdiv")
@@ -1730,6 +2186,21 @@ def main() -> int:
     report["probes"] = {"checks": checks16, "times": times16, "launches": launches_probe,
                         "int32_ops_s": ops_s}
     stamp(16)
+
+    # -- phase 17: orientation and MinHash counts on the card -------------
+    giant, mixed = bench_sets()
+    synth = synthetic_set()
+    report["orientation_counts"] = phase17(dev, seqs, giant, mixed, synth)
+    stamp(17)
+    # -- phase 18: configs 3_giant099 and 4_tree_mixed end to end ---------
+    report["configs_3_4"] = phase18(pen, giant, mixed, synth[:512])
+    stamp(18)
+    # -- phase 19: pair sharding over devices and processes ---------------
+    report["sharding"] = phase19(dev, pen, seqs, fasta, paf)
+    stamp(19)
+    total_s = time.perf_counter() - t_start
+    print(f"smoke total seconds: {total_s:.1f}; phases 17-19: "
+          f"{sum(phase_s[k] for k in ('17', '18', '19')):.1f} s", flush=True)
 
     def pick(rows, **want):
         return next(r for r in rows if all(r.get(k) == v for k, v in want.items()))

@@ -5,6 +5,7 @@ with the GPU has no jax. These tests keep the copies byte-identical to
 their reference files, so they cannot drift, and check that the port
 imports with jax blocked."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -39,6 +40,9 @@ COPIES = [
     "testing/dense.py",
     "orient/__init__.py",
     "sketch/__init__.py",
+    "parallel/__init__.py",
+    "wfa/simple.py",
+    "validation.py",
 ]
 
 
@@ -58,9 +62,84 @@ def test_native_resolves_to_repo_csrc():
     assert port._CSRC == ref._CSRC == os.path.join(REPO, "csrc")
 
 
+def _port_only_lines(src: str, device_defs) -> set:
+    """Line numbers of the port's device code in a copy of a reference
+    module: the module docstring; imports of torch and of the port's
+    `device` and `membership` modules; the functions named in
+    `device_defs`; the gate (the assignments to `device` and `use_device`,
+    and of the `if use_device:` statement its header and its body, not
+    its `else` branch, which is the reference's host routing); route
+    counts (`*_routes.took(...)`); and the `device` argument and
+    `self.device` attribute. A run of comment lines directly above one
+    of these belongs to it."""
+    tree = ast.parse(src)
+    spans = []
+    body = tree.body
+    if body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant):
+        spans.append((body[0].lineno, body[0].end_lineno))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import) and [a.name for a in node.names] == ["torch"]:
+            spans.append((node.lineno, node.end_lineno))
+        elif isinstance(node, ast.ImportFrom) and (node.module or "").split(".")[-1] in (
+            "device", "membership"
+        ):
+            spans.append((node.lineno, node.end_lineno))
+        elif isinstance(node, ast.FunctionDef) and node.name in device_defs:
+            spans.append((node.lineno, node.end_lineno))
+        elif isinstance(node, ast.Assign) and any(
+            (isinstance(t, ast.Name) and t.id in ("use_device", "device"))
+            or (isinstance(t, ast.Attribute) and t.attr == "device")
+            for t in node.targets
+        ):
+            spans.append((node.lineno, node.end_lineno))
+        elif isinstance(node, ast.If) and isinstance(node.test, ast.Name) and (
+            node.test.id == "use_device"
+        ):
+            spans.append((node.lineno, node.body[-1].end_lineno))
+        elif (
+            isinstance(node, ast.Expr)
+            and isinstance(node.value, ast.Call)
+            and isinstance(node.value.func, ast.Attribute)
+            and node.value.func.attr == "took"
+            and isinstance(node.value.func.value, ast.Name)
+            and node.value.func.value.id.endswith("_routes")
+        ):
+            spans.append((node.lineno, node.end_lineno))
+        elif isinstance(node, ast.arg) and node.arg == "device":
+            spans.append((node.lineno, node.end_lineno))
+    lines = src.splitlines()
+    out = set()
+    for first, last in spans:
+        while first > 1 and lines[first - 2].strip().startswith("#"):
+            first -= 1
+        out.update(range(first, last + 1))
+    return out
+
+
+def _assert_reference_minus_device_code(rel: str, device_defs) -> str:
+    with open(os.path.join(REPO, "allwave_tpu", rel)) as f:
+        ref_lines = set(f.read().splitlines())
+    with open(os.path.join(REPO, "allwave_tpu_torch", rel)) as f:
+        port_src = f.read()
+    skip = _port_only_lines(port_src, device_defs)
+    for name in device_defs:
+        assert f"def {name}(" in port_src, name
+    host = [
+        (no, line)
+        for no, line in enumerate(port_src.splitlines(), 1)
+        if no not in skip
+    ]
+    stray = [(no, line) for no, line in host if line not in ref_lines]
+    assert not stray, f"allwave_tpu_torch/{rel}: lines not in the reference: {stray}"
+    assert "jax" not in port_src.split('"""', 2)[2]
+    return port_src
+
+
 def test_minhash_is_the_reference_minus_device_code():
     """sketch/minhash.py: every line of the port's copy outside its
-    docstring appears in the reference, and the host functions agree."""
+    docstring and its torch device code (`_intersection_counts_device`
+    and the gate in `pairwise_intersection_counts`) appears in the
+    reference, and the host functions agree."""
     import numpy as np
 
     from allwave_tpu.core.types import Sequence as RSeq
@@ -68,19 +147,42 @@ def test_minhash_is_the_reference_minus_device_code():
     from allwave_tpu_torch.core.types import Sequence as TSeq
     from allwave_tpu_torch.sketch import minhash as T
 
-    with open(os.path.join(REPO, "allwave_tpu", "sketch", "minhash.py")) as f:
-        ref_lines = set(f.read().splitlines())
-    with open(os.path.join(REPO, "allwave_tpu_torch", "sketch", "minhash.py")) as f:
-        port_src = f.read()
-    body = port_src.split('"""', 2)[2]
-    assert all(line in ref_lines for line in body.splitlines())
-    assert "jax" not in body
+    _assert_reference_minus_device_code(
+        "sketch/minhash.py", ("_intersection_counts_device",)
+    )
 
     rng = np.random.RandomState(3)
     seqs = [rng.choice(list(b"ACGT"), 300).astype(np.uint8).tobytes() for _ in range(6)]
     rm = R.compute_distance_matrix_with_params([RSeq(f"s{i}", s) for i, s in enumerate(seqs)])
     tm = T.compute_distance_matrix_with_params([TSeq(f"s{i}", s) for i, s in enumerate(seqs)])
     np.testing.assert_array_equal(rm, tm)
+
+
+def test_orientation_is_the_reference_minus_device_code():
+    """orient/orientation.py: every line of the port's copy outside its
+    torch device code (`_decision_matrix_device`, `_decide_device`, the
+    gate in `orient_batch`, the route counts and the index's device)
+    appears in the reference, and the host paths agree."""
+    import numpy as np
+
+    from allwave_tpu.core.types import Sequence as RSeq
+    from allwave_tpu.orient.orientation import OrientationIndex as RIdx
+    from allwave_tpu_torch.core.types import Sequence as TSeq
+    from allwave_tpu_torch.orient.orientation import OrientationIndex as TIdx
+
+    _assert_reference_minus_device_code(
+        "orient/orientation.py", ("_decision_matrix_device", "_decide_device")
+    )
+
+    rng = np.random.RandomState(4)
+    seqs = [rng.choice(list(b"ACGT"), 300).astype(np.uint8).tobytes() for _ in range(7)]
+    seqs[2] = seqs[1][::-1]
+    r = RIdx([RSeq(f"s{i}", s) for i, s in enumerate(seqs)])
+    t = TIdx([TSeq(f"s{i}", s) for i, s in enumerate(seqs)], device="cpu")
+    np.testing.assert_array_equal(r._decision_matrix(), t._decision_matrix())
+    np.testing.assert_array_equal(r._distances, t._distances)
+    idx = [(0, 3), (5, 1), (2, 6)]
+    np.testing.assert_array_equal(r.orient_batch(idx), t.orient_batch(idx))
 
 
 def test_imports_with_jax_blocked():
@@ -96,6 +198,13 @@ def test_imports_with_jax_blocked():
         "allwave_tpu_torch.testing.batches",
         "allwave_tpu_torch.sparsify.knn",
         "allwave_tpu_torch.testing.dense",
+        "allwave_tpu_torch.wfa.simple",
+        "allwave_tpu_torch.validation",
+        "allwave_tpu_torch.sketch.membership",
+        "allwave_tpu_torch.parallel.mesh",
+        "allwave_tpu_torch.parallel.dist",
+        "allwave_tpu_torch.parallel.check",
+        "allwave_tpu_torch.orient.orientation",
     ]
     code = (
         "import sys; sys.modules['jax'] = None\n"
