@@ -336,7 +336,8 @@ int allwave_segment_traceback(const void* planes, int NS, int B, int W,
   if ((reinterpret_cast<uintptr_t>(planes) & 15) != 0 || g.log_n > 3 || g.log_r > 12)
     return (int)cudaErrorInvalidValue;
   const int smem = smem_of(g);
-  cudaError_t e = allow_smem((const void*)segment_traceback_kernel, smem);
+  static int allowed[kMaxDevices] = {};
+  cudaError_t e = allow_smem((const void*)segment_traceback_kernel, smem, allowed);
   if (e != cudaSuccess) return (int)e;
   segment_traceback_kernel<<<B, 32 * ((1 << g.log_n) + 1), smem,
                              static_cast<cudaStream_t>(stream)>>>(

@@ -64,21 +64,22 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\n\tcp.async.wait_group 0;" ::: "memory");
 }
 
+constexpr int kMaxDevices = 64;
+
 // Let `kernel` take `bytes` of dynamic shared memory on the current
 // device: cudaFuncSetAttribute once a device and size (the call costs
-// host time on every launch otherwise). One kernel a library calls it,
-// and the record is that library's own: `static`, since the loader merges
-// the statics of an inline function across the libraries of a process,
-// and a size set for one walk's kernel would then skip the call for the
-// other's.
-static cudaError_t allow_smem(const void* kernel, int bytes) {
-  static int allowed[64] = {};
+// host time on every launch otherwise). `allowed` (kMaxDevices entries)
+// is the caller's record of the sizes set, one record for each kernel:
+// a size set for one kernel must not skip the call for another (the
+// loader merges the statics of an inline function across the libraries
+// of a process, so the record is never a static of this header).
+static cudaError_t allow_smem(const void* kernel, int bytes, int* allowed) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  if (dev < 64 && allowed[dev] >= bytes) return cudaSuccess;
+  if (dev < kMaxDevices && allowed[dev] >= bytes) return cudaSuccess;
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e == cudaSuccess && dev < 64) allowed[dev] = bytes;
+  if (e == cudaSuccess && dev < kMaxDevices) allowed[dev] = bytes;
   return e;
 }
 

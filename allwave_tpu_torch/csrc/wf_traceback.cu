@@ -54,8 +54,11 @@
 // way.
 //
 // Kept byte for byte from the XLA walk: the tie order X > I1 > I2 > D1 >
-// D2; gap extend before open; the origin emit at s == 0; two emit slots
-// per hop (the M-run/I/D emit, then the X emit); emits past run_cap
+// D2 (the instantiation FLIP = true, the reference's test-only mutation
+// ALLWAVE_TB_FLIP, prefers I1 over X; the production one, FLIP = false,
+// has no run-time test for it and compiles to the instructions the kernel
+// had before it); gap extend before open; the origin emit at s == 0; two
+// emit slots per hop (the M-run/I/D emit, then the X emit); emits past run_cap
 // dropped while nrun counts on; an overflowing walker goes inactive at
 // the end of its 16-hop chunk; walkers pause at s <= s_lo unless
 // s == 0; at most (3 * run_cap + 8) / 16 + 2 chunks a segment.
@@ -95,6 +98,7 @@ __device__ __forceinline__ void cp_async4(int* dst, const int* src) {
                : "memory");
 }
 
+template <bool FLIP>
 __global__ void wf_traceback_kernel(
     const int* __restrict__ hist, int NS, int B, int W,
     const int* __restrict__ ring, int K, const int* __restrict__ c_lo,
@@ -346,11 +350,16 @@ __global__ void wf_traceback_kernel(
           cd2 = rd(4, s, cc);
         }
         const int pre = max(max(max(cx, ci1), max(cd1, ci2)), cd2);
-        const int choice = cx == pre    ? 0
-                           : ci1 == pre ? 1
-                           : ci2 == pre ? 3
-                           : cd1 == pre ? 2
-                                        : 4;
+        int choice;
+        if constexpr (FLIP) {
+          choice = ci1 == pre ? 1 : cx == pre ? 0 : ci2 == pre ? 3 : cd1 == pre ? 2 : 4;
+        } else {  // written as before the flip: the same instructions
+          choice = cx == pre    ? 0
+                   : ci1 == pre ? 1
+                   : ci2 == pre ? 3
+                   : cd1 == pre ? 2
+                                : 4;
+        }
         const bool at_origin = s == 0;
         const int n_match = at_origin ? h : h - pre;
         if (n_match > 0) emit('M', n_match);
@@ -427,7 +436,8 @@ int allwave_wf_traceback_design(int NS, int W) {
 // active; ops (B, run_cap) uint8; lens (B, run_cap) int32; nrun (B,)
 // int32; overflow (B,) bool; stats (2, B) int32 or null: each walker's
 // hops and misses of this call. design: a code of
-// allwave_wf_traceback_design. Updates walk and the buffers in place.
+// allwave_wf_traceback_design; flip: nonzero for the FLIP instantiation
+// (test only). Updates walk and the buffers in place.
 int allwave_wf_traceback(const void* hist, int NS, int B, int W,
                          const void* ring, int K, const void* c_lo, int s_lo,
                          int x, int o1, int e1, int o2, int e2, int off0,
@@ -435,7 +445,7 @@ int allwave_wf_traceback(const void* hist, int NS, int B, int W,
                          int dep1, int dep2, int dep3, int dep4, int D,
                          void* walk, void* ops, void* lens, void* nrun,
                          void* overflow, int run_cap, void* stats, int design,
-                         void* stream) {
+                         int flip, void* stream) {
   if (B <= 0) return 0;
   TbPen pen;
   pen.x = x;
@@ -456,10 +466,11 @@ int allwave_wf_traceback(const void* hist, int NS, int B, int W,
   const Design g{design & 15, (design >> 4) & 15};
   if (g.log_n > 3 || g.log_r > 10 || s_lo < 0) return (int)cudaErrorInvalidValue;
   const int smem = smem_of(g, pen.DH);
-  cudaError_t e = allow_smem((const void*)wf_traceback_kernel, smem);
+  const auto kernel = flip ? wf_traceback_kernel<true> : wf_traceback_kernel<false>;
+  static int allowed[2][kMaxDevices] = {};  // one record an instantiation
+  cudaError_t e = allow_smem((const void*)kernel, smem, allowed[flip ? 1 : 0]);
   if (e != cudaSuccess) return (int)e;
-  wf_traceback_kernel<<<B, 32 * ((1 << g.log_n) + 2), smem,
-                        static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<B, 32 * ((1 << g.log_n) + 2), smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(hist), NS, B, W, static_cast<const int*>(ring),
       K, static_cast<const int*>(c_lo), s_lo, pen, static_cast<int*>(walk),
       static_cast<uint8_t*>(ops), static_cast<int*>(lens),

@@ -382,14 +382,15 @@ def step_chain(insns, labels):
 
 def kernel_name(func: str, name: str):
     """`name<a, b, ...>` for a mangled kernel name that instantiates
-    template `name` with int arguments, `name` for one that is no
-    template; None where func is not `name`."""
-    m = re.search(r"\d+" + re.escape(name) + r"(I(?:Li\d+E)+E)?", func)
+    template `name` with int or bool arguments (`6`, `true`), `name` for
+    one that is no template; None where func is not `name`."""
+    m = re.search(r"\d+" + re.escape(name) + r"(I(?:L[ib]\d+E)+E)?", func)
     if m is None:
         return None
     if m.group(1) is None:
         return name
-    args = re.findall(r"Li(\d+)E", m.group(1))
+    args = [v if t == "i" else ("false", "true")[int(v)]
+            for t, v in re.findall(r"L([ib])(\d+)E", m.group(1))]
     return f"{name}<{', '.join(args)}>"
 
 

@@ -125,3 +125,17 @@ def long_indel_batch(rng, B: int, L: int, l_pad: int, gap: int, div: float = 0.0
         ts[b, : t.size] = t
         tlens[b] = t.size
     return qs, ts, qlens, tlens
+
+
+def pair_batch(pairs, l_pad: int):
+    """(q, t) byte pairs as batch arrays: (B, l_pad) uint8 queries and
+    targets, zero-padded, and (B,) int32 lengths."""
+    B = len(pairs)
+    qs = np.zeros((B, l_pad), np.uint8)
+    ts = np.zeros((B, l_pad), np.uint8)
+    for b, (q, t) in enumerate(pairs):
+        qs[b, : len(q)] = np.frombuffer(q, np.uint8)
+        ts[b, : len(t)] = np.frombuffer(t, np.uint8)
+    qlens = np.array([len(q) for q, _ in pairs], np.int32)
+    tlens = np.array([len(t) for _, t in pairs], np.int32)
+    return qs, ts, qlens, tlens

@@ -83,7 +83,7 @@ SIGNATURES = {
     },
     "wf_traceback": {
         "allwave_wf_traceback": (
-            [_P, _I, _I, _I, _P, _I, _P] + [_I] * 17 + [_P] * 5 + [_I, _P, _I, _P],
+            [_P, _I, _I, _I, _P, _I, _P] + [_I] * 17 + [_P] * 5 + [_I, _P, _I, _I, _P],
             _I,
         ),
         "allwave_wf_traceback_design": ([_I, _I], _I),

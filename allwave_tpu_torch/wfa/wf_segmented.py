@@ -40,6 +40,7 @@ each shape's design) and `wf_traceback_launches`.
 from __future__ import annotations
 
 import functools
+import os
 from dataclasses import dataclass, field
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
@@ -67,6 +68,15 @@ from .segmented import WalkDesign, walk_design_of
 _C_M, _C_I1, _C_D1, _C_I2, _C_D2 = 0, 1, 2, 3, 4
 _COMPS = ("m", "i1", "d1", "i2", "d2")
 _I32 = torch.int32
+
+#: TEST-ONLY mutation knob (allwave_tpu_torch/fuzz.py): deliberately flip
+#: the walk's X-vs-I1 tie preference to prove the fuzz battery detects a
+#: single wrong tie-break bit. Read once, when this module is imported
+#: (the reference reads it at trace time): set the env var in a FRESH
+#: process. Never set in production. Every walk reads it at call time,
+#: the plain one, the tile emulation and the kernel's wrapper, which
+#: launches the kernel's FLIP instantiation.
+_TB_FLIP = os.environ.get("ALLWAVE_TB_FLIP") == "1"
 
 #: span kernel launches, shapes (B, K, W, l_pad, n_steps, with_history)
 #: (W = K on a full-band span; a sweep's n_steps is its score cap), and
@@ -535,7 +545,9 @@ def traceback_window_ref(hist, ring, s_lo: int, walk, bufs, pen: Penalties, c_lo
     its component's depth, or a score below 0, reads NULL, as
     pallas_wf.ckpt_to_buf leaves it), its body from hist (n_steps, 5, B,
     W). On a narrow replay the window column is c - c_lo. Walkers pause
-    at s <= s_lo unless s == 0. Updates walk and bufs in place.
+    at s <= s_lo unless s == 0. Updates walk and bufs in place. A walker
+    in the M state breaks ties X > I1 > I2 > D1 > D2, or I1 > X > I2 > D1
+    > D2 under the test-only `_TB_FLIP`.
 
     The XLA walk's structure shows in the bytes and is kept: hops in
     chunks of CHUNK, two emit slots per hop (the M-run/I/D emit, then the
@@ -594,11 +606,11 @@ def traceback_window_ref(hist, ring, s_lo: int, walk, bufs, pen: Penalties, c_lo
             mis_v, c_i1, c_d1, c_i2, c_d2, i1_ext, i2_ext, d1_ext, d2_ext = fetch9(s, c)
             c_x = torch.where(mis_v > NULL, mis_v + 1, NULL)
             pre = torch.maximum(torch.maximum(torch.maximum(c_x, c_i1), torch.maximum(c_d1, c_i2)), c_d2)
-            choice = torch.where(
-                c_x == pre, _C_M,
-                torch.where(c_i1 == pre, _C_I1,
-                            torch.where(c_i2 == pre, _C_I2, torch.where(c_d1 == pre, _C_D1, _C_D2))),
-            )
+            rest = torch.where(c_i2 == pre, _C_I2, torch.where(c_d1 == pre, _C_D1, _C_D2))
+            if _TB_FLIP:  # test-only: I1 preferred over X (see the knob above)
+                choice = torch.where(c_i1 == pre, _C_I1, torch.where(c_x == pre, _C_M, rest))
+            else:
+                choice = torch.where(c_x == pre, _C_M, torch.where(c_i1 == pre, _C_I1, rest))
             n_match = torch.where(at_origin, h, h - pre)
             is_i = (comp == _C_I1) | (comp == _C_I2)
             piece1 = (comp == _C_I1) | (comp == _C_D1)
@@ -771,8 +783,11 @@ def traceback_window_tiles(hist, ring, s_lo: int, walk, bufs, pen: Penalties, c_
                     cx = mis_v + 1 if mis_v > NULL else NULL
                     ci1, cd1, ci2, cd2 = (win(cp, s, cc) for cp in (1, 2, 3, 4))
                     pre = max(cx, ci1, cd1, ci2, cd2)
-                    choice = (_C_M if cx == pre else _C_I1 if ci1 == pre else _C_I2 if ci2 == pre
-                              else _C_D1 if cd1 == pre else _C_D2)
+                    rest = _C_I2 if ci2 == pre else _C_D1 if cd1 == pre else _C_D2
+                    if _TB_FLIP:  # test-only: I1 preferred over X
+                        choice = _C_I1 if ci1 == pre else _C_M if cx == pre else rest
+                    else:
+                        choice = _C_M if cx == pre else _C_I1 if ci1 == pre else rest
                     at_origin = s == 0
                     n_match = h if at_origin else h - pre
                     if n_match > 0:
@@ -816,7 +831,8 @@ def wf_traceback(hist, ring, s_lo: int, walk, bufs, pen: Penalties, c_lo=None, s
     contract as `traceback_window_ref`; updates walk and bufs in place).
     With stats ((2, B) int32, CUDA only), the kernel writes each
     walker's hops and misses (entries read from device memory, not from
-    a tile or the staged head) of this call there."""
+    a tile or the staged head) of this call there. Under the test-only
+    `_TB_FLIP` it launches the kernel's FLIP instantiation."""
     if D_._device_kind(hist) == "cpu":
         if stats is not None:
             raise ValueError("stats: hops and misses are the kernel's; the plain walk has none")
@@ -849,7 +865,7 @@ def wf_traceback(hist, ring, s_lo: int, walk, bufs, pen: Penalties, c_lo=None, s
         _ptr(c_lo), s_lo,
         pen.x, pen.o1, pen.e1, pen.o2, pen.e2, *offs, *deps, pen.max_lookback + 1,
         walk.data_ptr(), ops.data_ptr(), lens.data_ptr(), nrun.data_ptr(),
-        overflow.data_ptr(), run_cap, _ptr(stats), design.code,
+        overflow.data_ptr(), run_cap, _ptr(stats), design.code, int(_TB_FLIP),
         torch.cuda.current_stream(hist.device).cuda_stream,
     )
     cuda_build.check(rc, "wf_traceback kernel launch")

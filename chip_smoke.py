@@ -14,8 +14,10 @@ cluster replay's loops; for the step probes' 36 instantiations it
 prints registers, spills, each one's step loop and its dependent chain
 a step, and fails on a spill or a kernel with no chain; for the forward
 and op-chain probes' 12 and 17 it prints registers, spills and loops,
-and fails on a spill or a division in a loop of the forward's), drives the
-port's three engines and runs the probes:
+and fails on a spill or a division in a loop of the forward's; for the
+two walks' production kernels (the wavefront walk's FLIP = false
+instantiation) it fails on a spill, a division in a loop or a hop with
+no dependent chain), drives the port's three engines and runs the probes:
 
 * the short-pair main path (phases 2-6): the dense forward and
   traceback kernels against their plain PyTorch versions (the forward
@@ -95,7 +97,18 @@ port's three engines and runs the probes:
   launch's bytes, two processes joined by a gloo group
   (`parallel.dist.DistributedAllPairAligner`, both on cuda:0) write
   shards whose merged sorted lines equal phase 4's PAF, and
-  `align_pair` gives the oracle's score.
+  `align_pair` gives the oracle's score;
+* the test-only tie-break mutation and the fuzz (phase 20): the
+  wavefront walk's FLIP instantiation (`ALLWAVE_TB_FLIP`: I1 preferred
+  over X on a tie) held to the flipped plain walk and its tile emulation
+  at a 5b shape and on the mutation check's tie-rich batch (8 x 20 kb),
+  whose flipped walk must differ from the production one; then
+  allwave_tpu_torch/fuzz.py at 40 + 30 s: at least 150 phase-1 cases
+  (the dense engines on random penalty sets against the native oracle,
+  at least 50 of them, and the plain engine), at least 24 phase-2 cases
+  (the wavefront engine against the segmented one on 10-100 kb pairs),
+  no failure, and the mutation check in two fresh processes (clean 0,
+  flipped > 0); its artifact goes to the smoke's OUT_DIR, FUZZ_GPU.json.
 
 Each wrapper counts its launches by shape; every count is set to 0 just
 before a path is driven and read just after. Every kernel is held to its
@@ -103,7 +116,7 @@ plain version with tolerance 0: scores, certificates, band states, plane
 bytes, walk states and run buffers must be equal, because the tie-break
 contract (docs/TIEBREAK.md) leaves no room. Every phase prints its result
 and its seconds on its own line, and the smoke's total seconds follow
-phase 19; any failure exits non-zero. The last
+phase 20; any failure exits non-zero. The last
 three lines are the card's name and power limit, a JSON object with one
 entry per kernel (its time beside its plain version's and its bound: the
 larger of its least int32 operations over the card's int32 rate and its
@@ -622,7 +635,9 @@ def wf_walk_chain(device, pen, batch, init, ck, done, scores, K, l_pad, C, k_sub
     buffers must be equal after every segment, at each run_cap, and each
     segment's hops and misses equal to the tile schedule's emulation. The
     last segment's walk is timed alone. Returns one result dict per
-    run_cap."""
+    run_cap, with a digest of the final walk state and run buffers."""
+    import hashlib
+
     import torch
 
     from allwave_tpu_torch.wfa import segmented as TS
@@ -682,6 +697,8 @@ def wf_walk_chain(device, pen, batch, init, ck, done, scores, K, l_pad, C, k_sub
             # and those of all segments
             **walk_row(stats_k, stats_e, ms, design), "chain_hops_sum": hops,
             "chain_misses": misses,
+            "digest": hashlib.sha256(b"".join(t.cpu().numpy().tobytes()
+                                              for t in (walk_k, *bufs_k))).hexdigest()[:16],
         })
     return out
 
@@ -1310,6 +1327,64 @@ def phase19(dev, pen, headline, headline_fasta, headline_paf):
     return out
 
 
+def phase20(dev, pen, shape5b, batch5, C, k_sub):
+    """Phase 20: the wavefront walk's FLIP instantiation (the test-only
+    tie-break mutation) against the flipped plain walk, then the fuzz
+    (allwave_tpu_torch/fuzz.py) at a smoke budget. Returns its report."""
+    import numpy as np
+    import torch
+
+    from allwave_tpu_torch import fuzz as FZ
+    from allwave_tpu_torch.testing.batches import pair_batch
+    from allwave_tpu_torch.testing.fuzzgen import tie_rich_batch
+    from allwave_tpu_torch.wfa import wf_segmented as TW
+
+    def chain(batch, K, l_pad, s_cap, run_caps, n_seg):
+        init = TW.wf_init(*batch, pen, K)
+        ck, _, done, scores = TW.wf_span(*batch, pen, K, l_pad, 0, s_cap, init.seeds, False,
+                                         ckpt_every=C, done=init.done0, scores=init.scores0)
+        check(bool(done.any()), f"no pair of the phase 20 batch finished at K={K}")
+        return wf_walk_chain(dev, pen, batch, init, ck, done, scores, K, l_pad, C, k_sub,
+                             run_caps, reps=2, n_seg=n_seg)
+
+    # the kernel's FLIP instantiation, held to the flipped plain walk and
+    # its tile emulation (wf_walk_chain's checks): two segments at a 5b
+    # walk shape (phase 14's pairs), and every segment of the mutation
+    # check's tie-rich batch (8 x 20 kb), whose flipped walk must differ
+    # from the production instantiation's
+    (K5, l5), (B5, cap5) = shape5b
+    tie_pairs, _ = tie_rich_batch(np.random.RandomState(1234), 20_000, 8)
+    tie = tuple(torch.from_numpy(a).to(dev) for a in pair_batch(tie_pairs, 32768))
+    rows = {}
+    clean = chain(tie, 2048, 32768, 2048, (4096,), None)
+    try:
+        TW._TB_FLIP = True
+        rows["5b"] = chain(batch5(B5, l5), K5, l5, cap5, (4096,), 2)
+        rows["tie_rich"] = chain(tie, 2048, 32768, 2048, (4096,), None)
+    finally:
+        TW._TB_FLIP = False
+    changed = rows["tie_rich"][0]["digest"] != clean[0]["digest"]
+    check(changed, "the flipped walk of the tie-rich batch equals the production walk")
+    flip = {"max_abs_err": max(r["max_abs_err"] for v in rows.values() for r in v),
+            "shapes": {k: [[r[x] for x in ("B", "K", "W", "n_steps", "run_cap", "segments")]
+                           for r in v] for k, v in rows.items()},
+            "tie_rich_flip_changes_walk": changed}
+    print("phase 20 flip kernel: " + json.dumps(flip), flush=True)
+
+    # the fuzz's phases and its mutation check, the artifact in OUT_DIR
+    # (never tests/artifacts/): at least 150 phase-1 cases (50 against the
+    # oracle) and 24 phase-2 cases, no failure, the flip detected
+    rec = FZ.run(seed=20, budget_s=40, wf_budget_s=30, out=os.path.join(OUT_DIR, "FUZZ_GPU.json"),
+                 device="cuda", log=lambda m: print("phase 20 fuzz: " + m, flush=True))
+    p1, p2, mut = rec["phase1"], rec["phase2"], rec["mutation_check"]
+    check(p1["failures"] == 0 and p2["failures"] == 0, "the fuzz counted failures")
+    check(p1["cases"] >= 150 and p1["oracle_compared"] >= 50,
+          f"phase 1 of the fuzz ran {p1['cases']} cases, {p1['oracle_compared']} against the oracle")
+    check(p2["cases"] >= 24, f"phase 2 of the fuzz ran {p2['cases']} cases")
+    check(mut["detected"], f"the mutation check did not detect the flip: {mut}")
+    return {"flip": flip, "phase1": p1, "phase2": p2, "mutation_check": mut}
+
+
 def main() -> int:
     try:
         import torch
@@ -1432,13 +1507,27 @@ def main() -> int:
     for r in SA.report(["dense_traceback"]):
         print("phase 1 dense_traceback loop: " + json.dumps(r), flush=True)
     hop_chains = {}
-    # the two walks: registers and spills, and their loops (the walker's
-    # hops read tiles from shared memory: LDS; the producers copy them
-    # with cp.async: LDGSTS) divide nowhere
+    # the two walks: registers and spills (the production kernels spill
+    # nothing), and their loops (the walker's hops read tiles from shared
+    # memory: LDS; the producers copy them with cp.async: LDGSTS) divide
+    # nowhere. The wavefront walk's production kernel is its FLIP = false
+    # instantiation; FLIP = true (the test-only tie-break mutation) is
+    # printed beside it
+    production = {"segment_traceback": "segment_traceback_kernel",
+                  "wf_traceback": "wf_traceback_kernel<false>"}
     for name in ("segment_traceback", "wf_traceback"):
-        for fn, u in sorted(cuda_build.ptxas_usage(name).items()):
+        kname = production[name].split("<")[0]
+        usage = cuda_build.ptxas_usage(name)
+        for fn, u in sorted(usage.items()):
             print("phase 1 ptxas: " + json.dumps({"kernel": _short(fn), **u}), flush=True)
-        walk_loops = [r for r in SA.report([name]) if "_traceback_kernel" in r["function"]]
+        # ptxas names demangled (`<(bool)0>`) or, without cu++filt, mangled
+        prod = [u for fn, u in usage.items() if production[name] in (
+            SA.kernel_name(fn, kname), _short(fn).replace("(bool)0", "false"))]
+        check(len(prod) == 1 and prod[0].get("spill_stores", 1) == 0
+              and prod[0].get("spill_loads", 1) == 0,
+              f"the {name} kernel spills, or ptxas reports no {production[name]}: {usage}")
+        walk_loops = [r for r in SA.report([name])
+                      if SA.kernel_name(r["function"], kname) == production[name]]
         for r in walk_loops:
             print(f"phase 1 {name} loop: " + json.dumps(r), flush=True)
         check(walk_loops and not any(op.startswith("MUFU.RCP") for r in walk_loops for op in r["ops"])
@@ -1449,7 +1538,7 @@ def main() -> int:
         # the walker's least dependent chain a hop, read off this build's
         # machine code: phase 16's chain bound
         funcs, labels = SA.parse(SA.listing(name))
-        kernel = [f for f in funcs if "_traceback_kernel" in f]
+        kernel = [f for f in funcs if SA.kernel_name(f, kname) == production[name]]
         chain = SA.hop_chain(funcs[kernel[0]], labels[kernel[0]]) if len(kernel) == 1 else None
         check(chain is not None, f"no hop of the {name} walker has a dependent chain through a "
               "shared-memory load in its machine code")
@@ -2198,6 +2287,10 @@ def main() -> int:
     # -- phase 19: pair sharding over devices and processes ---------------
     report["sharding"] = phase19(dev, pen, seqs, fasta, paf)
     stamp(19)
+    # -- phase 20: the flip kernel and the fuzz ---------------------------
+    shape20 = min(widest5.items())
+    report["fuzz"] = phase20(dev, pen, shape20, batch5, C5, k_sub5)
+    stamp(20)
     total_s = time.perf_counter() - t_start
     print(f"smoke total seconds: {total_s:.1f}; phases 17-19: "
           f"{sum(phase_s[k] for k in ('17', '18', '19')):.1f} s", flush=True)
@@ -2421,6 +2514,7 @@ def main() -> int:
             "launches": launches_wf["wf_traceback"],
             "max_abs_err": max(r["max_abs_err"] for r in tb13 + tb15),
             "ms": wf_walk["ms"], "plain_ms": wf_walk["plain_ms"], **wf_walk_bound,
+            "flip_checked": report["fuzz"]["flip"],
         },
         {
             "name": "probe_forward", "route": "cuda",

@@ -648,6 +648,53 @@ def test_wf_traceback_kernel_matches_plain(cuda_device, run_cap, K, pairs, C):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("seed", [2, 10])
+def test_wf_traceback_flip_kernel_matches_flipped_plain(cuda_device, monkeypatch, seed):
+    """The test-only tie-break mutation (`_TB_FLIP`: I1 preferred over X)
+    on tie-rich pairs (tandem repeats with homopolymer runs, seeds whose
+    flipped walks differ, tests/test_torch_tb_flip.py): the kernel's FLIP
+    instantiation gives the flipped plain walk's state and buffers after
+    every segment, and the tile emulation's hops and misses; its walk
+    differs from the production instantiation's, launched first on the
+    same planes (segments of 128 levels: each instantiation sets its own
+    shared-memory size above 48 KB)."""
+    from allwave_tpu_torch.testing.batches import pair_batch
+    from allwave_tpu_torch.testing.fuzzgen import tie_rich_batch
+    from allwave_tpu_torch.wfa import wf_segmented as TW
+
+    pen = resolve_penalties(parse_scores("0,5,8,2,24,1"))
+    K, l_pad, C = 256, 512, 128
+    pairs, _ = tie_rich_batch(np.random.RandomState(seed), 320, 4)
+    batch = tuple(torch.from_numpy(a).to(cuda_device) for a in pair_batch(pairs, l_pad))
+    init = TW.wf_init(*batch, pen, K)
+    ck, _, done, scores = TW.wf_span(*batch, pen, K, l_pad, 0, 1024, init.seeds, False,
+                                     ckpt_every=C, done=init.done0, scores=init.scores0)
+    assert bool(done.all())
+    design = TW.wf_walk_design(C, K)
+    walks = [TW.new_walk(scores, init.c_end, batch[3], done) for _ in range(4)]
+    walks[3] = walks[3].cpu()
+    bufs = [TW.new_bufs(4, 512, cuda_device) for _ in range(3)] + [TW.new_bufs(4, 512, "cpu")]
+    for seg in range((int(scores.max()) - 1) // C, -1, -1):
+        _, hist, _, _ = TW.wf_span(*batch, pen, K, l_pad, seg * C, C, ck[seg], True)
+        monkeypatch.setattr(TW, "_TB_FLIP", False)
+        TW.wf_traceback(hist, ck[seg], seg * C, walks[0], bufs[0], pen)
+        monkeypatch.setattr(TW, "_TB_FLIP", True)
+        stats = torch.zeros((2, 4), dtype=torch.int32, device=cuda_device)
+        TW.wf_traceback(hist, ck[seg], seg * C, walks[1], bufs[1], pen, stats=stats)
+        TW.traceback_window_ref(hist, ck[seg], seg * C, walks[2], bufs[2], pen)
+        emu = torch.zeros((2, 4), dtype=torch.int32)
+        TW.traceback_window_tiles(hist.cpu(), ck[seg].cpu(), seg * C, walks[3], bufs[3], pen,
+                                  stats=emu, design=design)
+        torch.cuda.synchronize()
+        assert torch.equal(walks[1], walks[2]) and torch.equal(walks[1].cpu(), walks[3])
+        for a, b, e in zip(bufs[1], bufs[2], bufs[3]):
+            assert torch.equal(a, b) and torch.equal(a.cpu(), e)
+        assert torch.equal(stats.cpu(), emu)
+    assert not (torch.equal(walks[0], walks[1])
+                and all(torch.equal(a, b) for a, b in zip(bufs[0], bufs[1])))
+
+
+@pytest.mark.cuda
 def test_wavefront_route_launches_kernels_and_matches_cpu(cuda_device, monkeypatch):
     """UnifiedAligner's long route on the card sends hinted pairs to the
     wavefront engine (both wavefront kernels launch, one pair falls

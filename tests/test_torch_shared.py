@@ -205,6 +205,8 @@ def test_imports_with_jax_blocked():
         "allwave_tpu_torch.parallel.dist",
         "allwave_tpu_torch.parallel.check",
         "allwave_tpu_torch.orient.orientation",
+        "allwave_tpu_torch.fuzz",
+        "allwave_tpu_torch.testing.fuzzgen",
     ]
     code = (
         "import sys; sys.modules['jax'] = None\n"
