@@ -31,6 +31,7 @@ from ..orient.orientation import OrientationIndex
 from ..sparsify.pairs import build_pairs
 from ..device import resolve_device
 from ..wfa.dense_engine import DenseConfig, UnifiedAligner
+from ..wfa.engine import EngineConfig
 from ..wfa.params import resolve_penalties
 
 #: pairs per streaming chunk. One chunk = one launch group at the
@@ -92,9 +93,11 @@ class AllPairAligner:
         use_mash_orientation: bool = False,
         sparsification: SparsificationStrategy = None,
         orientation_params: Optional[AlignmentParams] = None,
-        dense_config: Optional[DenseConfig] = None,
+        engine_config: Optional[EngineConfig] = None,
         chunk_size: int = DEFAULT_CHUNK,
         threads: int = 1,
+        *,
+        dense_config: Optional[DenseConfig] = None,
         device=None,
     ):
         from ..core.types import NoSparsification
@@ -111,6 +114,7 @@ class AllPairAligner:
             else AlignmentParams.edit_distance()
         )
         self.chunk_size = chunk_size
+        self.engine_config = engine_config
         self.dense_config = dense_config
         self.device = resolve_device(device)
         self.pairs = build_pairs(sequences, self.sparsification, exclude_self)
@@ -222,7 +226,8 @@ class AllPairAligner:
         if self._orient_eng is None:
             pen = resolve_penalties(self.orientation_params)
             self._orient_eng = UnifiedAligner(
-                pen, dense_config=self.dense_config, device=self.device
+                pen, dense_config=self.dense_config,
+                wavefront_config=self.engine_config, device=self.device,
             )
         eng = self._orient_eng
         fwd_pairs = []
@@ -257,7 +262,8 @@ class AllPairAligner:
     ) -> None:
         pen = resolve_penalties(self.params)
         eng = UnifiedAligner(
-            pen, dense_config=self.dense_config, device=self.device
+            pen, dense_config=self.dense_config,
+            wavefront_config=self.engine_config, device=self.device,
         )
         pairs = self.pairs
         run_wide = self.use_mash_orientation and pairs.shape[0] > 0
@@ -379,7 +385,8 @@ class AllPairAligner:
         Still batched under the hood, chunk by chunk."""
         pen = resolve_penalties(self.params)
         eng = UnifiedAligner(
-            pen, dense_config=self.dense_config, device=self.device
+            pen, dense_config=self.dense_config,
+            wavefront_config=self.engine_config, device=self.device,
         )
         pairs = self.pairs
         for lo in range(0, pairs.shape[0], self.chunk_size):

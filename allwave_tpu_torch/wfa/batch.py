@@ -1,18 +1,54 @@
-"""The wavefront helpers of allwave_tpu/wfa/batch.py that the wavefront
-checkpoint-replay engine (wfa/wf_segmented.py) uses, in PyTorch.
+"""Batched wavefront alignment in PyTorch (reference:
+allwave_tpu/wfa/batch.py): the device passes of the batched wavefront
+engine (wfa/engine.py) and the helpers the wavefront checkpoint-replay
+engine (wfa/wf_segmented.py) shares with it.
 
 Conventions are the reference's: pattern = query (v), text = target
 (h), diagonal k = h - v, a wavefront stores the offset h per diagonal,
-NULL marks a diagonal with no value. The rest of the reference's
-batch.py serves its one-shot BatchWavefrontAligner, which the port does
-not carry.
+NULL marks a diagonal with no value, CIGAR ops in the WFA2 byte
+convention. A batch of B pairs runs at once; per pair the band holds K
+diagonals [k0, k0 + K) around 0 and k_end = tlen - qlen.
+
+Two passes, each with two versions:
+
+* `wavefront_forward`: the score sweep. Every score level s computes
+  the five components M, I1, D1, I2, D2 of the band from a rolling
+  buffer of the last D = pen.max_lookback + 1 levels, extends M greedily
+  along its diagonals, and ends when the pair reaches (tlen, k_end) or
+  s_cap. With history it also keeps every level's five planes,
+  (s_cap + 1, B, K) int32 each.
+* `wavefront_traceback`: the walk of those planes from (s*, k_end, M)
+  to the origin, emitting (op, run) pairs end -> start into
+  (B, run_cap) buffers with the run count and an overflow flag.
+
+`wavefront_forward_ref` and `wavefront_traceback_ref` are the plain
+versions, a line-by-line transcription of the reference's XLA loops;
+they run on any device, and the CPU tests hold them to the reference.
+`wavefront_forward` and `wavefront_traceback` pick by the device of
+their tensors: a CPU tensor takes the plain version, a CUDA tensor
+launches csrc/wf_batch.cu's hand-written kernel or raises; nothing
+falls back. Each wrapper counts its launches (`forward_launches`,
+`traceback_launches`).
+
+History rows above a finished pair's score are don't-care. The
+reference's loop runs until every pair of the batch is done, so a pair
+that finished early gets rows up to the batch's last level and NULL
+rows after it; the kernel runs a block a pair and stops each pair at its
+own score, leaving the rows above it unwritten. The defined rows are
+0..scores[b] of a finished pair and every row of an unfinished one; the
+traceback reads nothing above scores[b], so no output depends on the
+rest.
 """
 
 from __future__ import annotations
 
+from typing import Dict, NamedTuple, Optional
+
+import numpy as np
 import torch
 
-from .segmented import expand_runs_to_cigar  # noqa: F401  (re-exported)
+from .dense import LaunchCount, _check_cuda, _device_kind
+from .params import Penalties
 
 NULL = -(2**30)
 
@@ -21,6 +57,34 @@ _OP_M = ord("M")
 _OP_X = ord("X")
 _OP_I = ord("I")
 _OP_D = ord("D")
+
+# component codes of the traceback's state machine, and the order of
+# the history planes
+_C_M, _C_I1, _C_D1, _C_I2, _C_D2 = 0, 1, 2, 3, 4
+COMPS = ("m", "i1", "d1", "i2", "d2")
+
+#: csrc/wf_batch.cu reads each sequence row 8 bytes at a time: rows of
+#: the CUDA forward are a multiple of this many bytes
+L_ALIGN = 8
+
+forward_launches = LaunchCount()
+traceback_launches = LaunchCount()
+
+
+class ForwardResult(NamedTuple):
+    scores: torch.Tensor  # (B,) int32; -1 where not finished within s_cap
+    done: torch.Tensor  # (B,) bool
+
+
+def pack_quads(seqs: torch.Tensor) -> torch.Tensor:
+    """(B, L) uint8 -> (B, L) int64 where out[b, i] packs bytes
+    seq[b, i..i+4) little-endian, zeros past the end: the reference's
+    uint32 words, held in int64 (torch's uint32 lacks the bit ops)."""
+    s = seqs.to(torch.int64)
+    out = s.clone()
+    for j in range(1, min(4, s.shape[1])):
+        out[:, :-j] |= s[:, j:] << (8 * j)
+    return out
 
 
 def _shift_right(a: torch.Tensor) -> torch.Tensor:
@@ -31,6 +95,69 @@ def _shift_right(a: torch.Tensor) -> torch.Tensor:
 def _shift_left(a: torch.Tensor) -> torch.Tensor:
     """out[..., c] = a[..., c+1], NULL in."""
     return torch.cat([a[..., 1:], torch.full_like(a[..., :1], NULL)], -1)
+
+
+def _extend(h, k, h_max, q4, t4):
+    """Greedy match-run extension of offsets `h` (B, K) along their
+    diagonals, 4 bases a compare (quad-packed rows q4/t4). The iteration
+    bound ceil(L/4) + 2 is the reference's; it never binds."""
+    lq, lt = q4.shape[1], t4.shape[1]
+    max_iters = min(lq, lt) // 4 + 2
+    cont = (h > NULL) & (h < h_max)
+    it = 0
+    while it < max_iters and bool(cont.any()):
+        sv = (h - k).clamp(0, lq - 1).long()
+        sh = h.clamp(0, lt - 1).long()
+        x = torch.gather(q4, 1, sv) ^ torch.gather(t4, 1, sh)
+        n = (
+            ((x & 0xFF) == 0).int()
+            + ((x & 0xFFFF) == 0).int()
+            + ((x & 0xFFFFFF) == 0).int()
+            + (x == 0).int()
+        )
+        allowed = h_max - h
+        step = torch.minimum(n, allowed)
+        h = h + torch.where(cont & (step > 0), step, 0)
+        cont = cont & (n >= 4) & (allowed > 4)
+        it += 1
+    return h
+
+
+def _wavefront_step(pen: Penalties, s: int, buf: Dict[str, torch.Tensor], k, h_max, q4, t4):
+    """The five components at score s from the rolling buffer `buf`
+    (comp -> (D, B, K); buf[comp][s' % D] holds score s')."""
+    D = buf["m"].shape[0]
+
+    def src(comp, ds):
+        if s < ds:
+            return torch.full_like(buf[comp][0], NULL)
+        return buf[comp][(s - ds) % D]
+
+    def trim(a):
+        return torch.where(a > h_max, NULL, a)
+
+    def plus1(a):
+        return torch.where(a > NULL, a + 1, NULL)
+
+    # I1[s][k] = max(M[s-o1-e1][k-1], I1[s-e1][k-1]) + 1
+    i1 = trim(plus1(torch.maximum(
+        _shift_right(src("m", pen.o1 + pen.e1)), _shift_right(src("i1", pen.e1)))))
+    # D1[s][k] = max(M[s-o1-e1][k+1], D1[s-e1][k+1])
+    d1 = trim(torch.maximum(
+        _shift_left(src("m", pen.o1 + pen.e1)), _shift_left(src("d1", pen.e1))))
+    best = torch.maximum(i1, d1)
+    if pen.two_piece:
+        i2 = trim(plus1(torch.maximum(
+            _shift_right(src("m", pen.o2 + pen.e2)), _shift_right(src("i2", pen.e2)))))
+        d2 = trim(torch.maximum(
+            _shift_left(src("m", pen.o2 + pen.e2)), _shift_left(src("d2", pen.e2))))
+        best = torch.maximum(best, torch.maximum(i2, d2))
+    else:
+        i2 = torch.full_like(i1, NULL)
+        d2 = torch.full_like(i1, NULL)
+    mis = trim(plus1(src("m", pen.x)))
+    m = trim(_extend(torch.maximum(best, mis), k, h_max, q4, t4))
+    return m, i1, d1, i2, d2
 
 
 def _band_geometry(qlens: torch.Tensor, tlens: torch.Tensor, K: int):
@@ -50,3 +177,258 @@ def _make_masks(qlens: torch.Tensor, tlens: torch.Tensor, k0: torch.Tensor, K: i
     h_max = torch.minimum(tlens[:, None], qlens[:, None] + ks)
     valid = (ks >= -qlens[:, None]) & (ks <= tlens[:, None])
     return ks, torch.where(valid, h_max, -1)
+
+
+def _history_planes(s_cap: int, B: int, K: int, device, fill: Optional[int]):
+    """The five history planes as views of one (5, s_cap+1, B, K) int32
+    tensor, NULL-filled when `fill` is given, else uninitialised."""
+    shape = (len(COMPS), s_cap + 1, B, K)
+    if fill is None:
+        hist = torch.empty(shape, dtype=torch.int32, device=device)
+    else:
+        hist = torch.full(shape, fill, dtype=torch.int32, device=device)
+    return dict(zip(COMPS, hist.unbind(0)))
+
+
+def wavefront_forward_ref(qs, ts, qlens, tlens, pen: Penalties, s_cap: int, k_width: int,
+                          with_history: bool = False):
+    """Plain version of `wavefront_forward` (reference: batch.py
+    wavefront_forward): every level runs for the whole batch until all
+    pairs are done or s_cap."""
+    B = qs.shape[0]
+    K = k_width
+    D = pen.max_lookback + 1
+    dev = qs.device
+    qlens = qlens.to(torch.int32)
+    tlens = tlens.to(torch.int32)
+    q4 = pack_quads(qs)
+    t4 = pack_quads(ts)
+    k_end, k0 = _band_geometry(qlens, tlens, K)
+    ks, h_max = _make_masks(qlens, tlens, k0, K)
+    # pairs whose |len diff| exceeds the band can never finish here
+    feasible = k_end.abs() <= K - 1
+    c_end = (k_end - k0).clamp(0, K - 1).long()
+
+    buf = {c: torch.full((D, B, K), NULL, dtype=torch.int32, device=dev) for c in COMPS}
+    # score 0: M[0] = 0 on diagonal 0 (band index -k0), extended
+    lanes = torch.arange(K, dtype=torch.int32, device=dev)[None, :]
+    m0 = torch.where(lanes == (-k0)[:, None], 0, NULL).to(torch.int32)
+    m0 = _extend(m0, ks, h_max, q4, t4)
+    m0 = torch.where(m0 > h_max, NULL, m0)
+    buf["m"][0] = m0
+    hist = _history_planes(s_cap, B, K, dev, NULL) if with_history else None
+    if with_history:
+        hist["m"][0] = m0
+
+    done = (m0.gather(1, c_end[:, None])[:, 0] == tlens) & feasible
+    scores = torch.where(done, 0, -1).to(torch.int32)
+    s = 0
+    while s < s_cap and not bool(done.all()):
+        s += 1
+        planes = _wavefront_step(pen, s, buf, ks, h_max, q4, t4)
+        for c, p in zip(COMPS, planes):
+            buf[c][s % D] = p
+            if with_history:
+                hist[c][s] = p
+        done_now = (planes[0].gather(1, c_end[:, None])[:, 0] == tlens) & feasible & ~done
+        scores = torch.where(done_now, s, scores)
+        done = done | done_now
+    return scores, done, hist
+
+
+def wavefront_forward(qs, ts, qlens, tlens, pen: Penalties, s_cap: int, k_width: int,
+                      with_history: bool = False):
+    """Run the batched wavefront DP until every pair terminates or
+    s_cap. Returns (scores (B,) int32, -1 where not finished; done (B,)
+    bool; history: a dict comp -> (s_cap+1, B, K) int32 plane when
+    with_history, else None). qs/ts (B, l_pad) uint8, qlens/tlens (B,)
+    int32. CPU tensors take the plain version; CUDA tensors launch
+    csrc/wf_batch.cu's `wf_batch_forward_kernel` (l_pad a multiple of
+    L_ALIGN). On the card the rows above a finished pair's score are
+    left unwritten (module docstring)."""
+    if _device_kind(qs) == "cpu":
+        return wavefront_forward_ref(qs, ts, qlens, tlens, pen, s_cap, k_width, with_history)
+    from . import cuda_build
+
+    B, l_pad = qs.shape
+    K = k_width
+    _check_cuda("qs", qs, torch.uint8, (B, l_pad))
+    _check_cuda("ts", ts, torch.uint8, (B, l_pad))
+    _check_cuda("qlens", qlens, torch.int32, (B,))
+    _check_cuda("tlens", tlens, torch.int32, (B,))
+    if K < 1 or s_cap < 0 or l_pad < 1 or l_pad % L_ALIGN:
+        raise ValueError(f"bad band width {K}, s_cap {s_cap} or l_pad {l_pad} "
+                         f"(a multiple of {L_ALIGN} on the card)")
+    if qs.data_ptr() % L_ALIGN or ts.data_ptr() % L_ALIGN:
+        raise ValueError(f"qs and ts rows must start {L_ALIGN}-byte aligned")
+    dev = qs.device
+    D = pen.max_lookback + 1
+    scores = torch.empty(B, dtype=torch.int32, device=dev)
+    done = torch.empty(B, dtype=torch.uint8, device=dev)
+    # the rolling buffer, (B, 5, D, K): each pair's levels in one block
+    ring = torch.empty((B, len(COMPS), D, K), dtype=torch.int32, device=dev)
+    hist = _history_planes(s_cap, B, K, dev, None) if with_history else None
+    rc = cuda_build.library("wf_batch").allwave_wf_batch_forward(
+        qs.data_ptr(), ts.data_ptr(), qlens.data_ptr(), tlens.data_ptr(),
+        B, l_pad, K, s_cap, D, pen.x, pen.o1, pen.e1, pen.o2, pen.e2,
+        int(pen.two_piece), int(with_history), ring.data_ptr(),
+        hist["m"].data_ptr() if with_history else None,
+        scores.data_ptr(), done.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    cuda_build.check(rc, "wf_batch_forward kernel launch")
+    forward_launches.launched((B, K, l_pad, s_cap, bool(with_history)))
+    return scores, done.bool(), hist
+
+
+def wavefront_traceback_ref(hist: dict, scores, qlens, tlens, pen: Penalties, run_cap: int):
+    """Plain version of `wavefront_traceback` (reference: batch.py
+    wavefront_traceback): every lane walks one step an iteration until
+    no lane is active or the iteration bound 3 * run_cap + 8."""
+    S1, B, K = hist["m"].shape
+    dev = scores.device
+    i32 = torch.int32
+    qlens = qlens.to(i32)
+    tlens = tlens.to(i32)
+    k_end, k0 = _band_geometry(qlens, tlens, K)
+    lanes = torch.arange(B, device=dev)
+    flat = {c: hist[c].reshape(-1) for c in COMPS}
+
+    def fetch(comp, s, c):
+        """plane[(s, b, c)] per lane b, NULL when s or c is out of range."""
+        ok = (s >= 0) & (s < S1) & (c >= 0) & (c < K)
+        idx = (s.clamp(0, S1 - 1).long() * B + lanes) * K + c.clamp(0, K - 1).long()
+        return torch.where(ok, flat[comp][idx], NULL)
+
+    ops = torch.zeros((B, run_cap), dtype=torch.uint8, device=dev)
+    lens = torch.zeros((B, run_cap), dtype=i32, device=dev)
+    nrun = torch.zeros(B, dtype=i32, device=dev)
+
+    def emit(nrun, do, op, count):
+        """Append a run on the lanes where `do` and count > 0."""
+        do = do & (count > 0)
+        idx = nrun.clamp(0, run_cap - 1).long()
+        ops[lanes, idx] = torch.where(do, op, ops[lanes, idx])
+        lens[lanes, idx] = torch.where(do, count, lens[lanes, idx])
+        return nrun + do.to(i32)
+
+    s = scores.to(i32)
+    c = (k_end - k0).to(i32)
+    h = tlens.clone()
+    comp = torch.full((B,), _C_M, dtype=i32, device=dev)
+    active = scores >= 0
+    overflow = torch.zeros(B, dtype=torch.bool, device=dev)
+    max_iters = 3 * run_cap + 8
+    it = 0
+    while it < max_iters and bool(active.any()):
+        is_m = comp == _C_M
+        at_origin = is_m & (s == 0)
+        # M state: tie order X, I1, I2, D1, D2
+        mis_v = fetch("m", s - pen.x, c)
+        cand_x = torch.where(mis_v > NULL, mis_v + 1, NULL)
+        cand = [fetch(k, s, c) for k in ("i1", "d1", "i2", "d2")]
+        cand_i1, cand_d1, cand_i2, cand_d2 = cand
+        pre = torch.stack([cand_x, *cand]).amax(0)
+        choice = torch.where(
+            cand_x == pre, _C_M, torch.where(
+                cand_i1 == pre, _C_I1, torch.where(
+                    cand_i2 == pre, _C_I2, torch.where(cand_d1 == pre, _C_D1, _C_D2))))
+        n_match = torch.where(at_origin, h, h - pre)
+        # gap states: prefer extend over open
+        i1_ext = fetch("i1", s - pen.e1, c - 1)
+        i2_ext = fetch("i2", s - pen.e2, c - 1)
+        d1_ext = fetch("d1", s - pen.e1, c + 1)
+        d2_ext = fetch("d2", s - pen.e2, c + 1)
+        ext_ok = torch.where(
+            comp == _C_I1, (i1_ext > NULL) & (i1_ext + 1 == h), torch.where(
+                comp == _C_I2, (i2_ext > NULL) & (i2_ext + 1 == h), torch.where(
+                    comp == _C_D1, (d1_ext > NULL) & (d1_ext == h),
+                    (d2_ext > NULL) & (d2_ext == h))))
+        is_i = (comp == _C_I1) | (comp == _C_I2)
+        is_d = (comp == _C_D1) | (comp == _C_D2)
+        piece1 = (comp == _C_I1) | (comp == _C_D1)
+        gap_e = torch.where(piece1, pen.e1, pen.e2)
+        gap_oe = torch.where(piece1, pen.o1 + pen.e1, pen.o2 + pen.e2)
+        # runs
+        nrun = emit(nrun, active & is_m, _OP_M, torch.where(is_m, n_match, 0))
+        mismatch = active & is_m & ~at_origin & (choice == _C_M)
+        nrun = emit(nrun, mismatch, _OP_X, mismatch.to(i32))
+        nrun = emit(nrun, active & is_i, _OP_I, (active & is_i).to(i32))
+        nrun = emit(nrun, active & is_d, _OP_D, (active & is_d).to(i32))
+        # transitions
+        new_s = torch.where(is_m, torch.where(choice == _C_M, s - pen.x, s),
+                            torch.where(ext_ok, s - gap_e, s - gap_oe))
+        new_h = torch.where(is_m, torch.where(choice == _C_M, pre - 1, pre),
+                            torch.where(is_i, h - 1, h))
+        new_c = torch.where(is_m, c, torch.where(is_i, c - 1, c + 1))
+        new_comp = torch.where(is_m, choice, torch.where(ext_ok, comp, _C_M))
+        overflow = overflow | (active & (nrun >= run_cap))
+        active = active & ~at_origin & ~overflow
+        s = torch.where(active, new_s, s).to(i32)
+        h = torch.where(active, new_h, h).to(i32)
+        c = torch.where(active, new_c, c).to(i32)
+        comp = torch.where(active, new_comp, comp).to(i32)
+        it += 1
+    # lanes still active at the bound hit a logic bug: flag as overflow
+    return ops, lens, nrun, overflow | active
+
+
+def wavefront_traceback(hist: dict, scores, qlens, tlens, pen: Penalties, run_cap: int):
+    """Walk the history planes (comp -> (S+1, B, K) int32) from each
+    finished pair's end to the origin. Returns (ops (B, run_cap) uint8,
+    lens (B, run_cap) int32, nruns (B,) int32, overflow (B,) bool); runs
+    in REVERSE alignment order (end -> start), nothing for a pair whose
+    score is < 0. CPU tensors take the plain version; CUDA tensors
+    launch csrc/wf_batch.cu's `wf_batch_traceback_kernel`."""
+    if _device_kind(scores) == "cpu":
+        return wavefront_traceback_ref(hist, scores, qlens, tlens, pen, run_cap)
+    from . import cuda_build
+
+    S1, B, K = hist["m"].shape
+    for c in COMPS:
+        _check_cuda(f"hist[{c!r}]", hist[c], torch.int32, (S1, B, K))
+    _check_cuda("scores", scores, torch.int32, (B,))
+    _check_cuda("qlens", qlens, torch.int32, (B,))
+    _check_cuda("tlens", tlens, torch.int32, (B,))
+    if run_cap < 1:
+        raise ValueError(f"bad run_cap {run_cap}")
+    dev = scores.device
+    ops = torch.zeros((B, run_cap), dtype=torch.uint8, device=dev)
+    lens = torch.zeros((B, run_cap), dtype=torch.int32, device=dev)
+    nruns = torch.empty(B, dtype=torch.int32, device=dev)
+    overflow = torch.empty(B, dtype=torch.uint8, device=dev)
+    rc = cuda_build.library("wf_batch").allwave_wf_batch_traceback(
+        *(hist[c].data_ptr() for c in COMPS), scores.data_ptr(),
+        qlens.data_ptr(), tlens.data_ptr(), S1, B, K,
+        pen.x, pen.o1, pen.e1, pen.o2, pen.e2, run_cap,
+        ops.data_ptr(), lens.data_ptr(), nruns.data_ptr(), overflow.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    cuda_build.check(rc, "wf_batch_traceback kernel launch")
+    traceback_launches.launched((B, K, S1 - 1, run_cap))
+    return ops, lens, nruns, overflow.bool()
+
+
+def expand_runs_to_cigar(ops_row: np.ndarray, lens_row: np.ndarray, n: int) -> np.ndarray:
+    """Reverse the walk's end-to-start runs and expand them to the
+    per-base WFA2-convention cigar byte array."""
+    if n == 0:
+        return np.zeros(0, dtype=np.uint8)
+    ops = ops_row[:n][::-1]
+    lens = lens_row[:n][::-1]
+    keep = lens > 0
+    return np.repeat(ops[keep], lens[keep]).astype(np.uint8)
+
+
+def expand_runs_batch(ops, lens, nruns):
+    """Batched expand_runs_to_cigar: (B, run_cap) end-to-start run
+    buffers into per-pair per-base cigar byte arrays with ONE np.repeat.
+    Returns a list of views into one backing buffer."""
+    B, cap = ops.shape
+    valid = np.arange(cap, dtype=np.int32)[None, :] < np.asarray(nruns)[:, None]
+    l64 = lens.astype(np.int64) * valid
+    ops_r = ops[:, ::-1]
+    lens_r = l64[:, ::-1]
+    expanded = np.repeat(ops_r.ravel(), lens_r.ravel())
+    offs = np.zeros(B + 1, dtype=np.int64)
+    np.cumsum(lens_r.sum(axis=1), out=offs[1:])
+    return [expanded[offs[i] : offs[i + 1]] for i in range(B)]

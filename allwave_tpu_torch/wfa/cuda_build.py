@@ -88,6 +88,10 @@ SIGNATURES = {
         ),
         "allwave_wf_traceback_design": ([_I, _I], _I),
     },
+    "wf_batch": {
+        "allwave_wf_batch_forward": ([_P] * 4 + [_I] * 12 + [_P] * 5, _I),
+        "allwave_wf_batch_traceback": ([_P] * 8 + [_I] * 9 + [_P] * 5, _I),
+    },
     # the probes of allwave_tpu_torch/probes (no production path)
     "probe_forward": {
         "allwave_probe_forward": ([_P] * 4 + [_I] * 10 + [_P] * 4, _I),

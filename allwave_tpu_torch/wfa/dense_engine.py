@@ -27,6 +27,8 @@ import torch
 
 from ..device import resolve_device
 from . import dense as D_
+from .batch import expand_runs_batch
+from .engine import BatchWavefrontAligner, EngineConfig
 from .params import Penalties
 
 
@@ -48,22 +50,6 @@ _OPS_UNPACK_LUT = np.empty((256, 4), np.uint8)
 for _b in range(256):
     for _j in range(4):
         _OPS_UNPACK_LUT[_b, _j] = b"MXID"[(_b >> (2 * _j)) & 3]
-
-
-def expand_runs_batch(ops, lens, nruns):
-    """Expand (B, run_cap) end-to-start run buffers into per-pair
-    per-base cigar byte arrays with ONE np.repeat (reference:
-    allwave_tpu/wfa/batch.py expand_runs_batch). Returns a list of
-    views into one backing buffer."""
-    B, cap = ops.shape
-    valid = np.arange(cap, dtype=np.int32)[None, :] < np.asarray(nruns)[:, None]
-    l64 = lens.astype(np.int64) * valid
-    ops_r = ops[:, ::-1]
-    lens_r = l64[:, ::-1]
-    expanded = np.repeat(ops_r.ravel(), lens_r.ravel())
-    offs = np.zeros(B + 1, dtype=np.int64)
-    np.cumsum(lens_r.sum(axis=1), out=offs[1:])
-    return [expanded[offs[i] : offs[i + 1]] for i in range(B)]
 
 
 class _AsyncResult:
@@ -507,15 +493,19 @@ class UnifiedAligner:
     what its band or score ceilings cannot take; those, the hintless
     pairs and every long pair on the CPU go to the segmented dense engine
     with their hints. All three engines share the dense engine's device
-    and sequence pool."""
+    and sequence pool. The batched wavefront engine stays available as
+    `wavefront` for score-only discovery workloads and as a cross-check
+    (wfa/engine.py); building it allocates nothing."""
 
     def __init__(
         self,
         pen: Penalties,
         dense_max_len: int = 16384,
         dense_config: Optional[DenseConfig] = None,
-        device=None,
+        wavefront_config: Optional[EngineConfig] = None,
         segmented_config=None,
+        *,
+        device=None,
     ):
         from .segmented import SegmentedDenseAligner
         from .wf_segmented import WavefrontSegmentedAligner
@@ -526,6 +516,7 @@ class UnifiedAligner:
         self.device = self.dense.device
         self.segmented = SegmentedDenseAligner(pen, segmented_config, dense=self.dense)
         self.wf_segmented = WavefrontSegmentedAligner(pen, dense=self.dense)
+        self.wavefront = BatchWavefrontAligner(pen, wavefront_config, device=self.device)
 
     def align_pairs(
         self,

@@ -46,6 +46,7 @@ import torch
 
 from ..device import resolve_device
 from . import dense as D
+from .batch import expand_runs_to_cigar
 from .dense import INF, LaunchCount, band_geometry
 from .params import Penalties
 
@@ -622,18 +623,6 @@ def segment_traceback(planes, d_lo: int, walk, bufs, l_pad: int, c_lo=None, stat
     )
     cuda_build.check(rc, "segment_traceback kernel launch")
     segment_traceback_launches.launched((B, W, l_pad, NS, run_cap), design)
-
-
-def expand_runs_to_cigar(ops_row: np.ndarray, lens_row: np.ndarray, n: int) -> np.ndarray:
-    """Reverse the walk's end-to-start runs and expand them to the
-    per-base WFA2-convention cigar byte array (reference:
-    allwave_tpu/wfa/batch.py expand_runs_to_cigar)."""
-    if n == 0:
-        return np.zeros(0, dtype=np.uint8)
-    ops = ops_row[:n][::-1]
-    lens = lens_row[:n][::-1]
-    keep = lens > 0
-    return np.repeat(ops[keep], lens[keep]).astype(np.uint8)
 
 
 def narrow_offsets(c: torch.Tensor, K: int, k_sub: int) -> torch.Tensor:

@@ -5,7 +5,7 @@ Run from the repository root on a machine with one NVIDIA Hopper GPU:
 
     python3 chip_smoke.py
 
-It builds the ten CUDA kernel libraries from the sources in this
+It builds the eleven CUDA kernel libraries from the sources in this
 checkout (one nvcc per source, all at once; phase 1 prints every dense
 forward, traceback and span kernel's registers and spill bytes from
 ptxas, fails if a register-band forward or replay kernel or the
@@ -108,7 +108,19 @@ no dependent chain), drives the port's three engines and runs the probes:
   at least 50 of them, and the plain engine), at least 24 phase-2 cases
   (the wavefront engine against the segmented one on 10-100 kb pairs),
   no failure, and the mutation check in two fresh processes (clean 0,
-  flipped > 0); its artifact goes to the smoke's OUT_DIR, FUZZ_GPU.json.
+  flipped > 0); its artifact goes to the smoke's OUT_DIR, FUZZ_GPU.json;
+* the batched wavefront engine (phase 21, allwave_tpu_torch/wfa/engine.py
+  and its kernels in csrc/wf_batch.cu, not on the main path: no earlier
+  phase may launch them): the forward (with and without history) and
+  the traceback against their plain versions at K = 129 and 2049 under
+  edit, affine and two-piece penalties, on edge, unfinished, infeasible
+  and empty pairs, with a run cap that overflows (the defined history
+  rows compared, wfa/batch.py); `UnifiedAligner(pen).wavefront
+  .align_pairs` over the headline's 16,256 oriented pairs, whose scores
+  and CIGARs must equal the dense engine's; both kernels timed beside
+  their plain versions at its widest history batch; `discover_scores`
+  over 5b's 56 oriented pairs against phase 14's long-path scores, and
+  `align_pairs` over them against its CIGARs.
 
 Each wrapper counts its launches by shape; every count is set to 0 just
 before a path is driven and read just after. Every kernel is held to its
@@ -116,7 +128,7 @@ plain version with tolerance 0: scores, certificates, band states, plane
 bytes, walk states and run buffers must be equal, because the tie-break
 contract (docs/TIEBREAK.md) leaves no room. Every phase prints its result
 and its seconds on its own line, and the smoke's total seconds follow
-phase 20; any failure exits non-zero. The last
+phase 21; any failure exits non-zero. The last
 three lines are the card's name and power limit, a JSON object with one
 entry per kernel (its time beside its plain version's and its bound: the
 larger of its least int32 operations over the card's int32 rate and its
@@ -1385,6 +1397,209 @@ def phase20(dev, pen, shape5b, batch5, C, k_sub):
     return {"flip": flip, "phase1": p1, "phase2": p2, "mutation_check": mut}
 
 
+def wf_batch_err(a, b, mask=None) -> int:
+    """Largest |a - b| over two integer or bool tensors (where `mask`)."""
+    import torch
+
+    d = (a.to(torch.int64) - b.to(torch.int64)).abs()
+    if mask is not None:
+        d = torch.where(mask, d, 0)
+    return int(d.max()) if d.numel() else 0
+
+
+def wf_batch_case(dev, scores_str, batch, K, s_cap, run_caps):
+    """Both csrc/wf_batch.cu kernels against their plain versions on one
+    batch (numpy qs, ts, qlens, tlens), the forward with and without
+    history: scores, done, the defined history rows (0..score of a
+    finished pair, every row of an unfinished one), and at each run cap
+    the walk's ops, lens, nruns and overflow. Returns a row with the
+    largest difference (max_abs_err) and the plain versions' ms."""
+    import torch
+
+    from allwave_tpu_torch.core.scores import parse_scores
+    from allwave_tpu_torch.wfa import batch as WB
+    from allwave_tpu_torch.wfa.params import resolve_penalties
+
+    pen = resolve_penalties(parse_scores(scores_str))
+    qs, ts, ql, tl = (torch.from_numpy(a).to(dev) for a in batch)
+    err, plain_ms = 0, {}
+    for hist in (False, True):
+        sk, dk, hk = WB.wavefront_forward(qs, ts, ql, tl, pen, s_cap, K, hist)
+        (sp, dp, hp), plain_ms[f"forward_hist{int(hist)}"] = timed_once(
+            lambda: WB.wavefront_forward_ref(qs, ts, ql, tl, pen, s_cap, K, hist))
+        err = max(err, wf_batch_err(sk, sp), wf_batch_err(dk, dp))
+    err = max(err, wf_batch_hist_err(hk, hp, sp, dp))
+    for cap in run_caps:
+        got = WB.wavefront_traceback(hk, sk, ql, tl, pen, cap)
+        want, plain_ms[f"traceback_{cap}"] = timed_once(
+            lambda: WB.wavefront_traceback_ref(hp, sp, ql, tl, pen, cap))
+        err = max([err] + [wf_batch_err(a, b) for a, b in zip(got, want)])
+    torch.cuda.synchronize()
+    row = {"scores": scores_str, "B": qs.shape[0], "K": K, "s_cap": s_cap, "l_pad": qs.shape[1],
+           "run_caps": list(run_caps), "max_abs_err": err, "plain_ms": plain_ms,
+           "done": int(dk.sum()), "overflow_at_last_cap": int(got[3].sum())}
+    check(err == 0, f"a wf_batch kernel differs from its plain version: {row}")
+    return row
+
+
+def wf_batch_hist_err(hk, hp, scores, done) -> int:
+    """wf_batch_err over the defined history rows (wfa/batch.py's
+    don't-care rule: rows above a finished pair's score are not compared)."""
+    import torch
+
+    S1 = hk["m"].shape[0]
+    lim = torch.where(done, scores, S1 - 1)
+    rows = (torch.arange(S1, device=scores.device)[:, None] <= lim[None, :])[:, :, None]
+    return max(wf_batch_err(hk[c], hp[c], rows) for c in hk)
+
+
+def phase21(dev, pen, seqs, pool5b, qi5b, ti5b, wf_out):
+    """Phase 21: the batched wavefront engine (wfa/engine.py) and its two
+    kernels (csrc/wf_batch.cu). The kernels against their plain versions
+    at K = 129 and 2049 under three penalty sets; no earlier phase
+    launched them (the main path does not route here); the sharded step
+    over [cuda:0] x 2 against one device; the engine's align_pairs over the headline's 16,256 oriented pairs against the
+    dense engine's scores and CIGARs, both kernels timed beside their
+    plain versions at its widest history batch; discover_scores over
+    5b's 56 oriented pairs against the long path's scores (phase 14),
+    and align_pairs over them against its CIGARs. Returns its report."""
+    import numpy as np
+    import torch
+
+    from allwave_tpu_torch.core.scores import parse_scores
+    from allwave_tpu_torch.engine.pipeline import AllPairAligner
+    from allwave_tpu_torch.parallel.mesh import sharded_alignment_step
+    from allwave_tpu_torch.testing.batches import pair_batch, wavefront_batch
+    from allwave_tpu_torch.wfa import batch as WB
+    from allwave_tpu_torch.wfa.dense_engine import UnifiedAligner
+
+    counts = (WB.forward_launches, WB.traceback_launches)
+    before = [lc.count for lc in counts]
+    check(before == [0, 0], f"an earlier phase launched the wf_batch kernels: {before}")
+
+    # the kernels against their plain versions: the wavefront engine's
+    # edge batch at K = 129 (an identical, a tlen == l_pad, an infeasible,
+    # an unfinished and a short pair) with empty pairs, and mutated 1.5 kb
+    # pairs at K = 2049; a run cap that fits and one that overflows
+    rng = np.random.RandomState(21)
+    empty = pair_batch([(b"", b"ACGTT"), (b"ACG", b""), (b"", b"")], 256)
+    small = tuple(np.concatenate(x) for x in zip(wavefront_batch(rng, 256, 129), empty))
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    wide = []
+    for _ in range(6):
+        q = rng.choice(bases, 1500 + rng.randint(0, 500)).tobytes()
+        t = bytearray(q)
+        for j in rng.randint(0, len(t), 15):
+            t[j] = bases[rng.randint(4)]
+        del t[700:703]
+        wide.append((q, bytes(t)))
+    wide += [(wide[0][0], wide[0][0]), (b"", b""), (b"G" * 2048, b"G" * 2000)]
+    cases = []
+    for s in ("0,1,1,1", "0,5,8,2", "0,5,8,2,24,1"):
+        cases.append(wf_batch_case(dev, s, small, 129, 64, (2 * 64 + 16, 5)))
+        cases.append(wf_batch_case(dev, s, pair_batch(wide, 2048), 2049, 1024, (2 * 1024 + 16, 5)))
+    for r in cases:
+        print("phase 21 kernels: " + json.dumps(r), flush=True)
+    # the step sharded over [cuda:0] x 2 gives the single device's outputs
+    qs, ts, ql, tl = (torch.from_numpy(a).to(dev) for a in small)
+    one, two = (sharded_alignment_step(devs, pen, 64, 129)(qs, ts, ql, tl)
+                for devs in ([dev], [dev, dev]))
+    check(all(torch.equal(a, b) for a, b in zip(one, two)),
+          "sharded_alignment_step over two devices differs from one")
+
+    # the engine over the headline's oriented pairs, against the dense engine
+    apa = AllPairAligner(seqs, parse_scores(SCORES), exclude_self=True, use_mash_orientation=True)
+    pool, qi, ti, _, _ = apa._orient_chunk(apa.get_pairs())
+    pairs = [(pool[q], pool[t]) for q, t in zip(qi.tolist(), ti.tolist())]
+    ua = UnifiedAligner(pen, device=dev)
+    dense = ua.align_pairs(pairs)
+    for lc in counts:
+        lc.reset()
+    t0 = time.perf_counter()
+    got = ua.wavefront.align_pairs(pairs)
+    torch.cuda.synchronize()
+    engine_s = time.perf_counter() - t0
+    launches = {"wf_batch_forward": WB.forward_launches.count,
+                "wf_batch_traceback": WB.traceback_launches.count}
+    fwd_shapes = dict(WB.forward_launches.shapes)
+    check(all(v > 0 for v in launches.values()),
+          f"the batch engine did not launch both kernels: {launches}")
+    check(all(g is not None for g in got), "the batch engine failed pairs of the headline")
+    same = [a[0] == b[0] and np.array_equal(a[1], b[1]) for a, b in zip(got, dense)]
+    check(all(same), f"the batch engine differs from the dense engine on {same.count(False)} "
+          f"of {len(same)} headline pairs")
+    rounds = sorted([B, K, n] for (B, K, _, _, hist), n in fwd_shapes.items() if not hist)
+    hist_batches = sorted([B, K, n] for (B, K, _, _, hist), n in fwd_shapes.items() if hist)
+    head = {"pairs": len(pairs), "identical_to_dense": sum(same), "engine_s": engine_s,
+            "launches": launches, "discovery_B_K_launches": rounds,
+            "history_B_K_launches": hist_batches,
+            "max_score": max(g[0] for g in got)}
+    print("phase 21 headline: " + json.dumps(head), flush=True)
+
+    # both kernels timed at the widest history batch of the headline run,
+    # beside their plain versions on the same inputs
+    eng = ua.wavefront
+    caps = [max(eng.config.s_cap_initial, 1 << (max(s, 1) - 1).bit_length()) for s, _ in got]
+    cap = max(caps)
+    bucket = sorted((i for i, c in enumerate(caps) if c == cap),
+                    key=lambda i: len(pairs[i][0]) + len(pairs[i][1]))
+    sub = [pairs[i] for i in bucket[: eng._history_batch_size(cap)]]
+    qs, ts, ql, tl = eng._batch(sub, True)
+    K = 2 * cap + 1
+    fwd = lambda: WB.wavefront_forward(qs, ts, ql, tl, pen, cap, K, True)
+    sk, dk, hk = fwd()
+    fwd_ms = time_ms(fwd, 3)
+    (sp, dp, hp), fwd_plain_ms = timed_once(
+        lambda: WB.wavefront_forward_ref(qs, ts, ql, tl, pen, cap, K, True))
+    f_err = max(wf_batch_err(sk, sp), wf_batch_err(dk, dp), wf_batch_hist_err(hk, hp, sp, dp))
+    del hp
+    run_cap = 2 * cap + 16
+    tb = lambda: WB.wavefront_traceback(hk, sk, ql, tl, pen, run_cap)
+    out_k = tb()
+    tb_ms = time_ms(tb, 3)
+    out_p, tb_plain_ms = timed_once(
+        lambda: WB.wavefront_traceback_ref(hk, sp, ql, tl, pen, run_cap))
+    t_err = max(wf_batch_err(a, b) for a, b in zip(out_k, out_p))
+    check(f_err == 0 and t_err == 0, f"the wf_batch kernels differ from their plain versions at "
+          f"the headline's history batch: forward {f_err}, traceback {t_err}")
+    levels = torch.where(dk, sk, cap).to(torch.int64) + 1
+    timing = {"B": len(sub), "K": K, "s_cap": cap, "l_pad": qs.shape[1],
+              "forward_ms": fwd_ms, "forward_plain_ms": fwd_plain_ms, "forward_err": f_err,
+              "lane_levels": int(levels.sum()) * K, "hist_bytes": 20 * int(levels.sum()) * K,
+              "traceback_ms": tb_ms, "traceback_plain_ms": tb_plain_ms, "traceback_err": t_err,
+              "run_cap": run_cap, "runs": int(out_k[2].sum())}
+    print("phase 21 headline batch: " + json.dumps(timing), flush=True)
+    del hk, out_k, out_p
+
+    # 5b: discovery over its 56 oriented pairs against the long path's
+    # scores, then align_pairs over them against the long path's CIGARs
+    pairs5b = [(pool5b[q], pool5b[t]) for q, t in zip(qi5b.tolist(), ti5b.tolist())]
+    for lc in counts:
+        lc.reset()
+    t0 = time.perf_counter()
+    found = eng.discover_scores(pairs5b)
+    torch.cuda.synchronize()
+    disc_s = time.perf_counter() - t0
+    disc_rounds = sorted([B, K, n] for (B, K, _, _, _), n in WB.forward_launches.shapes.items())
+    check(found.tolist() == [int(r[0]) for r in wf_out],
+          "the batch engine's 5b scores differ from the long path's")
+    for lc in counts:
+        lc.reset()
+    t0 = time.perf_counter()
+    got5 = eng.align_pairs(pairs5b)
+    torch.cuda.synchronize()
+    align5_s = time.perf_counter() - t0
+    check(all(a is not None and a[0] == b[0] and np.array_equal(a[1], b[1])
+              for a, b in zip(got5, wf_out)),
+          "the batch engine's 5b alignments differ from the long path's")
+    p5 = {"pairs": len(pairs5b), "discovery_s": disc_s, "discovery_B_K_launches": disc_rounds,
+          "scores": sorted(int(s) for s in found), "aligned": len(got5), "align_s": align5_s,
+          "history_B_K_launches": sorted([B, K, n] for (B, K, _, _, h), n
+                                         in WB.forward_launches.shapes.items() if h)}
+    print("phase 21 5b: " + json.dumps(p5), flush=True)
+    return {"kernels": cases, "headline": head, "timing": timing, "5b": p5}
+
+
 def main() -> int:
     try:
         import torch
@@ -2291,6 +2506,9 @@ def main() -> int:
     shape20 = min(widest5.items())
     report["fuzz"] = phase20(dev, pen, shape20, batch5, C5, k_sub5)
     stamp(20)
+    # -- phase 21: the batched wavefront engine and its kernels ----------
+    report["wf_batch"] = wfb = phase21(dev, pen, seqs, pool5b, qi5b, ti5b, wf_out)
+    stamp(21)
     total_s = time.perf_counter() - t_start
     print(f"smoke total seconds: {total_s:.1f}; phases 17-19: "
           f"{sum(phase_s[k] for k in ('17', '18', '19')):.1f} s", flush=True)
@@ -2434,6 +2652,17 @@ def main() -> int:
     walk_bound.update(chain_bound(walk, hop_chains["segment_traceback"]))
     wf_walk_bound.update(chain_bound(wf_walk, hop_chains["wf_traceback"]))
 
+    # the batch engine's kernels at the headline's widest history batch
+    # (phase 21): the forward's lane-levels, its bases and lengths in,
+    # scores, done flags and the history rows it needs out (20 bytes a
+    # lane-level); the walk's runs, each one plane entry read and 5 bytes
+    # (op, length) written, with each pair's score, lengths, run count and
+    # overflow flag
+    wt = wfb["timing"]
+    wfb_fwd_bound = bnd(wt["lane_levels"] * WF_LEVEL_OPS,
+                        wt["B"] * (2 * wt["l_pad"] + 13) + wt["hist_bytes"])
+    wfb_tb_bound = bnd(wt["runs"] * WALK_OPS, 9 * wt["runs"] + 17 * wt["B"])
+
     kernels = [
         {
             "name": "dense_forward", "route": "cuda", "tiers": [1, 2],
@@ -2554,6 +2783,24 @@ def main() -> int:
             "ms": x2_t["ms"], "plain_ms": x2_c["plain_ms"],
             "bound_ms": x2_t["bound_ms"], "bound_by": x2_t["bound_by"], "library_ms": None,
             "x3": probe_time(x3_t, case=PR.X3_ROLL_CASE, copies=x3_t["copies"]),
+        },
+        {
+            "name": "wf_batch_forward", "route": "cuda",
+            "source": "allwave_tpu_torch/csrc/wf_batch.cu",
+            "replaces": "allwave_tpu/wfa/batch.py:201 (XLA wavefront_forward)",
+            "launches": wfb["headline"]["launches"]["wf_batch_forward"],
+            "max_abs_err": max([r["max_abs_err"] for r in wfb["kernels"]] + [wt["forward_err"]]),
+            "ms": wt["forward_ms"], "plain_ms": wt["forward_plain_ms"], **wfb_fwd_bound,
+            "shape": [wt["B"], wt["K"], wt["l_pad"], wt["s_cap"]],
+        },
+        {
+            "name": "wf_batch_traceback", "route": "cuda",
+            "source": "allwave_tpu_torch/csrc/wf_batch.cu",
+            "replaces": "allwave_tpu/wfa/batch.py:299 (XLA wavefront_traceback)",
+            "launches": wfb["headline"]["launches"]["wf_batch_traceback"],
+            "max_abs_err": max([r["max_abs_err"] for r in wfb["kernels"]] + [wt["traceback_err"]]),
+            "ms": wt["traceback_ms"], "plain_ms": wt["traceback_plain_ms"], **wfb_tb_bound,
+            "shape": [wt["B"], wt["K"], wt["s_cap"], wt["run_cap"]],
         },
     ]
     with open(os.path.join(OUT_DIR, "report.json"), "w") as f:

@@ -1,8 +1,9 @@
 """The hand-written CUDA kernels against their plain PyTorch versions
-(allwave_tpu_torch/wfa/dense.py, segmented.py and wf_segmented.py, and
-the probes of allwave_tpu_torch/probes), on the card. The plain versions
-are held to the JAX reference on the CPU by tests/test_torch_dense.py,
-test_torch_segmented.py, test_torch_wavefront.py and
+(allwave_tpu_torch/wfa/dense.py, segmented.py, wf_segmented.py and
+batch.py, and the probes of allwave_tpu_torch/probes), on the card. The
+plain versions are held to the JAX reference on the CPU by
+tests/test_torch_dense.py, test_torch_segmented.py,
+test_torch_wavefront.py, test_torch_batch_wfa.py and
 test_torch_probes.py.
 
 Every test here needs a CUDA device, is marked `cuda` and skips without
@@ -826,3 +827,69 @@ def test_step_kernels_at_every_register_band(cuda_device, k):
         assert torch.equal(s, x6[m][0]) and all(torch.equal(a, b) for a, b in zip(planes, x6[m][1]))
         assert P6.step_launches.designs[(tb, k, w, n, m)] == P8.kernel_for(m, k)
     torch.cuda.synchronize()
+
+
+def _wf_batch_case(K, l_pad, seed):
+    """numpy (qs, ts, qlens, tlens) for the batched wavefront kernels:
+    at K = 129 the wavefront engine's edge batch (identical, tlen ==
+    l_pad, infeasible, short pairs), else mutated pairs; then empty
+    pairs."""
+    from allwave_tpu_torch.testing.batches import pair_batch, wavefront_batch
+
+    rng = np.random.RandomState(seed)
+    if l_pad > K + 60:
+        main = wavefront_batch(rng, l_pad, K)
+    else:
+        main = random_batch(rng, 6, (3 * l_pad) // 4, l_pad, 0.02)
+    empty = pair_batch([(b"", b"ACGTT"), (b"ACG", b""), (b"", b"")], l_pad)
+    return tuple(np.concatenate(x) for x in zip(main, empty))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scores_str", SCORE_SETS)
+@pytest.mark.parametrize("K,s_cap,l_pad", [(129, 64, 256), (2049, 1024, 2048)])
+def test_wf_batch_kernels_match_plain(cuda_device, scores_str, K, s_cap, l_pad):
+    """csrc/wf_batch.cu's forward (with and without history) and walk
+    against their plain versions: scores, done, the defined history rows
+    (wfa/batch.py's don't-care rule), and the walk's ops, lens, nruns
+    and overflow at a run cap that fits and one that overflows."""
+    from allwave_tpu_torch.wfa import batch as WB
+
+    pen = resolve_penalties(parse_scores(scores_str))
+    qs, ts, ql, tl = (torch.from_numpy(a).to(cuda_device) for a in _wf_batch_case(K, l_pad, K))
+    WB.forward_launches.reset()
+    WB.traceback_launches.reset()
+    for hist in (False, True):
+        sk, dk, hk = WB.wavefront_forward(qs, ts, ql, tl, pen, s_cap, K, hist)
+        sp, dp, hp = WB.wavefront_forward_ref(qs, ts, ql, tl, pen, s_cap, K, hist)
+        assert torch.equal(sk, sp) and torch.equal(dk, dp)
+    lim = torch.where(dp, sp, s_cap)
+    rows = (torch.arange(s_cap + 1, device=cuda_device)[:, None] <= lim[None, :])[:, :, None]
+    for c in WB.COMPS:
+        assert torch.equal(torch.where(rows, hk[c], 0), torch.where(rows, hp[c], 0)), c
+    for run_cap in (2 * s_cap + 16, 5):
+        got = WB.wavefront_traceback(hk, sk, ql, tl, pen, run_cap)
+        want = WB.wavefront_traceback_ref(hp, sp, ql, tl, pen, run_cap)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), run_cap
+    assert WB.forward_launches.count == 2 and WB.traceback_launches.count == 2
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_wf_batch_engine_matches_cpu(cuda_device):
+    """BatchWavefrontAligner on the card (its discovery ladder and history
+    batches) gives the CPU's scores and CIGARs, and launches both
+    kernels."""
+    from allwave_tpu_torch.wfa import batch as WB
+    from allwave_tpu_torch.wfa.engine import BatchWavefrontAligner, EngineConfig
+
+    pen = resolve_penalties(parse_scores("0,5,8,2,24,1"))
+    qs, ts, ql, tl = _wf_batch_case(2049, 2048, 3)
+    pairs = [(q[:a].tobytes(), t[:b].tobytes()) for q, t, a, b in zip(qs, ts, ql, tl)]
+    cfg = EngineConfig(s_cap_initial=16, max_batch=3)
+    WB.forward_launches.reset()
+    gpu = BatchWavefrontAligner(pen, cfg, device=cuda_device).align_pairs(pairs)
+    assert WB.forward_launches.count > 0 and WB.traceback_launches.count > 0
+    cpu = BatchWavefrontAligner(pen, cfg, device="cpu").align_pairs(pairs)
+    for g, c in zip(gpu, cpu):
+        assert g[0] == c[0] and np.array_equal(g[1], c[1])
