@@ -283,7 +283,8 @@ def _git() -> str:
 def write_artifact(path: str, rec: dict) -> dict:
     """Append this run to the ledger of the artifact at path and write the
     record there, with cumulative counts over the ledger: for each
-    (seed, generator revision) the largest run, summed."""
+    (seed, generator revision) the largest run's cases and failures (a
+    rerun of a seed draws the same cases again), summed."""
     runs = []
     if os.path.exists(path):
         with open(path) as f:
@@ -291,16 +292,15 @@ def write_artifact(path: str, rec: dict) -> dict:
     runs.append({k: rec[k] for k in ("seed", "generator_rev", "git", "date", "device")}
                 | {"phase1_cases": rec["phase1"]["cases"], "phase2_cases": rec["phase2"]["cases"],
                    "failures": rec["failures"]})
+    counted = ("phase1_cases", "phase2_cases", "failures")
     best = {}
     for r in runs:
         key = (r["seed"], r["generator_rev"])
-        b = best.get(key, {"phase1_cases": 0, "phase2_cases": 0})
-        best[key] = {k: max(b[k], r[k]) for k in ("phase1_cases", "phase2_cases")}
+        b = best.get(key, dict.fromkeys(counted, 0))
+        best[key] = {k: max(b[k], r[k]) for k in counted}
     rec = {**rec, "runs": runs, "cumulative": {
         "distinct_seed_revisions": len(best),
-        "phase1_cases": sum(b["phase1_cases"] for b in best.values()),
-        "phase2_cases": sum(b["phase2_cases"] for b in best.values()),
-        "failures": sum(r["failures"] for r in runs),
+        **{k: sum(b[k] for b in best.values()) for k in counted},
     }}
     with open(path, "w") as f:
         json.dump(rec, f, indent=1)

@@ -27,8 +27,13 @@ they run on any device, and the CPU tests hold them to the reference.
 `wavefront_forward` and `wavefront_traceback` pick by the device of
 their tensors: a CPU tensor takes the plain version, a CUDA tensor
 launches csrc/wf_batch.cu's hand-written kernel or raises; nothing
-falls back. Each wrapper counts its launches (`forward_launches`,
-`traceback_launches`).
+falls back. The forward runs the design its shape picks
+(`forward_design`: one block a pair with its rings in shared memory,
+a cluster of blocks a pair, or the rings in device memory for bands
+too wide for a cluster of 16), the walk a warp a pair;
+`wavefront_traceback_rounds` emulates the walk's round trips on the
+CPU. Each wrapper counts its launches and the design each shape ran
+(`forward_launches`, `traceback_launches`).
 
 History rows above a finished pair's score are don't-care. The
 reference's loop runs until every pair of the batch is done, so a pair
@@ -69,6 +74,65 @@ L_ALIGN = 8
 
 forward_launches = LaunchCount()
 traceback_launches = LaunchCount()
+
+#: the forward's designs by their tier code (csrc/wf_batch_tiers.cuh)
+TIERS = ("block", "cluster", "global")
+#: the walk's rounds (csrc/wf_batch.cu): an M round loads the candidates
+#: of WALK_XCH M positions (the state and its X successors) and WALK_NCH
+#: cells of each gap chain, a gap round WALK_GAP_CELLS cells of its chain
+WALK_XCH = 3
+WALK_NCH = 4
+WALK_GAP_CELLS = 32
+
+
+class ForwardDesign(NamedTuple):
+    """A design of csrc/wf_batch.cu's forward, decoded from the code of
+    its C dispatch (`allwave_wf_batch_forward_design`)."""
+
+    code: int
+    tier: str  # "block", "cluster" or "global"
+    staged: bool  # the sequence rows in shared memory
+    blocks_per_pair: int
+    lanes_per_thread: int  # 0 for global
+    lanes_per_block: int  # 0 for global
+    held: int  # clusters (blocks for one a pair) the card holds at once; 0 for global
+
+
+def decode_design(code: int, held: int = 0) -> ForwardDesign:
+    return ForwardDesign(code, TIERS[code & 3], bool(code >> 2 & 1), (code >> 3) & 31,
+                         (code >> 8) & 15, code >> 12, held)
+
+
+_designs: Dict[tuple, ForwardDesign] = {}
+
+
+def forward_design(K: int, B: int, l_pad: int, pen: Penalties,
+                   tier: Optional[str] = None) -> ForwardDesign:
+    """The forward's design for B pairs of rows of l_pad bytes on a band
+    of K lanes, from its C dispatch on the current card (memoised per
+    device and shape): the tier table of csrc/wf_batch_tiers.cuh on the
+    card's shared memory and SM count, a cluster's size by its
+    occupancy. tier="global" forces the global design (to time it beside
+    the others). Raises for a shape no design takes."""
+    import ctypes
+
+    from . import cuda_build
+
+    if tier not in (None, "global"):
+        raise ValueError(f"only the global design can be forced, not {tier!r}")
+    force = -1 if tier is None else TIERS.index(tier)
+    key = (torch.cuda.current_device(), K, B, l_pad, pen, force)  # the C side reads this device
+    if key not in _designs:
+        held = ctypes.c_int(0)
+        code = cuda_build.library("wf_batch").allwave_wf_batch_forward_design(
+            K, B, l_pad, pen.max_lookback + 1, pen.e1, pen.e2, int(pen.two_piece), force,
+            ctypes.byref(held))
+        if held.value < 0:
+            cuda_build.check(-held.value, "cudaOccupancyMaxActiveClusters")
+        if code < 0:
+            raise ValueError(f"no wf_batch forward design for K={K} B={B} {pen}")
+        _designs[key] = decode_design(code, held.value)
+    return _designs[key]
 
 
 class ForwardResult(NamedTuple):
@@ -237,16 +301,20 @@ def wavefront_forward_ref(qs, ts, qlens, tlens, pen: Penalties, s_cap: int, k_wi
 
 
 def wavefront_forward(qs, ts, qlens, tlens, pen: Penalties, s_cap: int, k_width: int,
-                      with_history: bool = False):
+                      with_history: bool = False, design: Optional[str] = None):
     """Run the batched wavefront DP until every pair terminates or
     s_cap. Returns (scores (B,) int32, -1 where not finished; done (B,)
     bool; history: a dict comp -> (s_cap+1, B, K) int32 plane when
     with_history, else None). qs/ts (B, l_pad) uint8, qlens/tlens (B,)
     int32. CPU tensors take the plain version; CUDA tensors launch
-    csrc/wf_batch.cu's `wf_batch_forward_kernel` (l_pad a multiple of
-    L_ALIGN). On the card the rows above a finished pair's score are
-    left unwritten (module docstring)."""
+    csrc/wf_batch.cu's forward in the design `forward_design` picks
+    (l_pad a multiple of L_ALIGN); design="global" forces the global
+    one, which exists to be timed beside the others. On the card the
+    rows above a finished pair's score are left unwritten (module
+    docstring)."""
     if _device_kind(qs) == "cpu":
+        if design is not None:
+            raise ValueError("the plain version has no designs")
         return wavefront_forward_ref(qs, ts, qlens, tlens, pen, s_cap, k_width, with_history)
     from . import cuda_build
 
@@ -265,18 +333,23 @@ def wavefront_forward(qs, ts, qlens, tlens, pen: Penalties, s_cap: int, k_width:
     D = pen.max_lookback + 1
     scores = torch.empty(B, dtype=torch.int32, device=dev)
     done = torch.empty(B, dtype=torch.uint8, device=dev)
-    # the rolling buffer, (B, 5, D, K): each pair's levels in one block
-    ring = torch.empty((B, len(COMPS), D, K), dtype=torch.int32, device=dev)
     hist = _history_planes(s_cap, B, K, dev, None) if with_history else None
-    rc = cuda_build.library("wf_batch").allwave_wf_batch_forward(
-        qs.data_ptr(), ts.data_ptr(), qlens.data_ptr(), tlens.data_ptr(),
-        B, l_pad, K, s_cap, D, pen.x, pen.o1, pen.e1, pen.o2, pen.e2,
-        int(pen.two_piece), int(with_history), ring.data_ptr(),
-        hist["m"].data_ptr() if with_history else None,
-        scores.data_ptr(), done.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):  # the design and the launch read the current device
+        g = forward_design(K, B, l_pad, pen, design)
+        # the global design's rolling buffer, (B, 5, D, K); the others
+        # keep their rings in shared memory
+        ring = (torch.empty((B, len(COMPS), D, K), dtype=torch.int32, device=dev)
+                if g.tier == "global" else None)
+        rc = cuda_build.library("wf_batch").allwave_wf_batch_forward(
+            qs.data_ptr(), ts.data_ptr(), qlens.data_ptr(), tlens.data_ptr(),
+            B, l_pad, K, s_cap, D, pen.x, pen.o1, pen.e1, pen.o2, pen.e2,
+            int(pen.two_piece), int(with_history), g.code,
+            None if ring is None else ring.data_ptr(),
+            hist["m"].data_ptr() if with_history else None,
+            scores.data_ptr(), done.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
     cuda_build.check(rc, "wf_batch_forward kernel launch")
-    forward_launches.launched((B, K, l_pad, s_cap, bool(with_history)))
+    forward_launches.launched((B, K, l_pad, s_cap, bool(with_history)), g)
     return scores, done.bool(), hist
 
 
@@ -372,14 +445,21 @@ def wavefront_traceback_ref(hist: dict, scores, qlens, tlens, pen: Penalties, ru
     return ops, lens, nrun, overflow | active
 
 
-def wavefront_traceback(hist: dict, scores, qlens, tlens, pen: Penalties, run_cap: int):
+def wavefront_traceback(hist: dict, scores, qlens, tlens, pen: Penalties, run_cap: int,
+                        stats=None, design: str = "warp"):
     """Walk the history planes (comp -> (S+1, B, K) int32) from each
     finished pair's end to the origin. Returns (ops (B, run_cap) uint8,
     lens (B, run_cap) int32, nruns (B,) int32, overflow (B,) bool); runs
     in REVERSE alignment order (end -> start), nothing for a pair whose
     score is < 0. CPU tensors take the plain version; CUDA tensors
-    launch csrc/wf_batch.cu's `wf_batch_traceback_kernel`."""
+    launch csrc/wf_batch.cu's walk, a warp a pair (`wf_batch_walk_kernel`),
+    which fills `stats` ((2, B) int32 on the card: steps and round trips
+    a pair) when given. design="thread" runs the first design, a thread a
+    pair, which exists to be timed beside it and keeps no stats."""
     if _device_kind(scores) == "cpu":
+        if stats is not None or design != "warp":
+            raise ValueError("the plain walk keeps no stats and has no designs: "
+                             "wavefront_traceback_rounds emulates the kernel's")
         return wavefront_traceback_ref(hist, scores, qlens, tlens, pen, run_cap)
     from . import cuda_build
 
@@ -391,6 +471,10 @@ def wavefront_traceback(hist: dict, scores, qlens, tlens, pen: Penalties, run_ca
     _check_cuda("tlens", tlens, torch.int32, (B,))
     if run_cap < 1:
         raise ValueError(f"bad run_cap {run_cap}")
+    if design not in ("warp", "thread") or (design == "thread" and stats is not None):
+        raise ValueError(f"bad walk design {design!r} (stats only with 'warp')")
+    if stats is not None:
+        _check_cuda("stats", stats, torch.int32, (2, B))
     dev = scores.device
     ops = torch.zeros((B, run_cap), dtype=torch.uint8, device=dev)
     lens = torch.zeros((B, run_cap), dtype=torch.int32, device=dev)
@@ -399,13 +483,123 @@ def wavefront_traceback(hist: dict, scores, qlens, tlens, pen: Penalties, run_ca
     rc = cuda_build.library("wf_batch").allwave_wf_batch_traceback(
         *(hist[c].data_ptr() for c in COMPS), scores.data_ptr(),
         qlens.data_ptr(), tlens.data_ptr(), S1, B, K,
-        pen.x, pen.o1, pen.e1, pen.o2, pen.e2, run_cap,
+        pen.x, pen.o1, pen.e1, pen.o2, pen.e2, run_cap, int(design == "thread"),
         ops.data_ptr(), lens.data_ptr(), nruns.data_ptr(), overflow.data_ptr(),
+        None if stats is None else stats.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.check(rc, "wf_batch_traceback kernel launch")
-    traceback_launches.launched((B, K, S1 - 1, run_cap))
+    traceback_launches.launched((B, K, S1 - 1, run_cap), design)
     return ops, lens, nruns, overflow.bool()
+
+
+def walk_cells(pat: int, s: int, c: int, pen: Penalties):
+    """The cells (plane, level, lane) one round of the walk loads from
+    (s, c), lane by lane (csrc/wf_batch.cu `walk_cell`): pattern _C_M the
+    five candidates of the M state and of its WALK_XCH - 1 X successors
+    and WALK_NCH cells of each gap chain; a gap plane (1-4) that chain's
+    next WALK_GAP_CELLS cells."""
+    def chain(g, n):
+        e = pen.e1 if g in (_C_I1, _C_D1) else pen.e2
+        d = -1 if g in (_C_I1, _C_I2) else 1
+        return [(g, s - j * e, c + d * j) for j in range(1, n + 1)]
+
+    if pat != _C_M:
+        return chain(pat, WALK_GAP_CELLS)
+    cells = []
+    for j in range(WALK_XCH):
+        s0 = s - j * pen.x
+        cells += [(_C_M, s0 - pen.x, c)] + [(p, s0, c) for p in (_C_I1, _C_D1, _C_I2, _C_D2)]
+    for g in (_C_I1, _C_D1, _C_I2, _C_D2):
+        cells += chain(g, WALK_NCH)
+    return cells
+
+
+def wavefront_traceback_rounds(hist: dict, scores, qlens, tlens, pen: Penalties, run_cap: int):
+    """The warp walk's schedule, emulated pair by pair on the CPU: the
+    plain walk's steps, each cell taken from the round that loaded it
+    (`walk_cells`) and a cell no round holds starting the next one.
+    Returns wavefront_traceback's four outputs (numpy) and stats (2, B):
+    steps and round trips a pair, which the kernel's must equal."""
+    planes = [hist[c].cpu().numpy() for c in COMPS]  # (S1, B, K) each
+    S1, B, K = planes[0].shape
+    scores = np.asarray(scores.cpu() if torch.is_tensor(scores) else scores)
+    qlens = np.asarray(qlens.cpu() if torch.is_tensor(qlens) else qlens)
+    tlens = np.asarray(tlens.cpu() if torch.is_tensor(tlens) else tlens)
+    ops = np.zeros((B, run_cap), np.uint8)
+    lens = np.zeros((B, run_cap), np.int32)
+    nruns = np.zeros(B, np.int32)
+    overflow = np.zeros(B, bool)
+    stats = np.zeros((2, B), np.int32)
+    oe = {_C_I1: pen.o1 + pen.e1, _C_D1: pen.o1 + pen.e1,
+          _C_I2: pen.o2 + pen.e2, _C_D2: pen.o2 + pen.e2}
+    for b in range(B):
+        qlen, tlen = int(qlens[b]), int(tlens[b])
+        k_end = tlen - qlen
+        k0 = min(0, k_end) - (K - 1 - abs(k_end)) // 2
+        s, c, h, comp, nrun = int(scores[b]), k_end - k0, tlen, _C_M, 0
+        active, ovf = s >= 0, False
+        held, rounds = {}, 0
+
+        def cells(want, pat):
+            nonlocal held, rounds
+            if not all(w in held for w in want):
+                held = {}
+                for p, ss, cc in walk_cells(pat, s, c, pen):
+                    held.setdefault((p, ss, cc), int(planes[p][ss, b, cc])
+                                    if 0 <= ss < S1 and 0 <= cc < K else NULL)
+                rounds += 1
+            return [held[w] for w in want]
+
+        def emit(op, count):
+            nonlocal nrun
+            if count > 0:
+                idx = min(max(nrun, 0), run_cap - 1)
+                ops[b, idx], lens[b, idx] = op, count
+                nrun += 1
+
+        it = 0
+        while active and it < 3 * run_cap + 8:
+            if comp == _C_M:
+                at_origin = s == 0
+                mv, ci1, cd1, ci2, cd2 = cells(
+                    [(_C_M, s - pen.x, c)] + [(p, s, c) for p in (_C_I1, _C_D1, _C_I2, _C_D2)],
+                    _C_M)
+                cx = mv + 1 if mv > NULL else NULL
+                pre = max(cx, ci1, cd1, ci2, cd2)
+                choice = (_C_M if cx == pre else _C_I1 if ci1 == pre else _C_I2 if ci2 == pre
+                          else _C_D1 if cd1 == pre else _C_D2)
+                emit(_OP_M, h if at_origin else h - pre)
+                if not at_origin and choice == _C_M:
+                    emit(_OP_X, 1)
+                ovf = nrun >= run_cap
+                active = not at_origin and not ovf
+                if active:
+                    if choice == _C_M:
+                        s, h = s - pen.x, pre - 1
+                    else:
+                        h = pre
+                    comp = choice
+            else:
+                is_i = comp in (_C_I1, _C_I2)
+                e = pen.e1 if comp in (_C_I1, _C_D1) else pen.e2
+                nc = c - 1 if is_i else c + 1
+                (ext,) = cells([(comp, s - e, nc)], comp)
+                ext_ok = ext > NULL and (ext + 1 == h if is_i else ext == h)
+                emit(_OP_I if is_i else _OP_D, 1)
+                ovf = nrun >= run_cap
+                active = not ovf
+                if active:
+                    s -= e if ext_ok else oe[comp]
+                    c = nc
+                    h -= 1 if is_i else 0
+                    if not ext_ok:
+                        comp = _C_M
+            it += 1
+        nruns[b] = nrun
+        overflow[b] = ovf or active
+        stats[:, b] = (it, rounds)
+    return ops, lens, nruns, overflow, stats
 
 
 def expand_runs_to_cigar(ops_row: np.ndarray, lens_row: np.ndarray, n: int) -> np.ndarray:

@@ -111,16 +111,24 @@ no dependent chain), drives the port's three engines and runs the probes:
   flipped > 0); its artifact goes to the smoke's OUT_DIR, FUZZ_GPU.json;
 * the batched wavefront engine (phase 21, allwave_tpu_torch/wfa/engine.py
   and its kernels in csrc/wf_batch.cu, not on the main path: no earlier
-  phase may launch them): the forward (with and without history) and
-  the traceback against their plain versions at K = 129 and 2049 under
-  edit, affine and two-piece penalties, on edge, unfinished, infeasible
-  and empty pairs, with a run cap that overflows (the defined history
-  rows compared, wfa/batch.py); `UnifiedAligner(pen).wavefront
-  .align_pairs` over the headline's 16,256 oriented pairs, whose scores
-  and CIGARs must equal the dense engine's; both kernels timed beside
-  their plain versions at its widest history batch; `discover_scores`
-  over 5b's 56 oriented pairs against phase 14's long-path scores, and
-  `align_pairs` over them against its CIGARs.
+  phase may launch them; no ring forward or walk kernel may spill): the
+  forward (with and without history) and the walk against their plain
+  versions in each forward design, one block a pair (K = 129), a cluster
+  a pair (K = 513 on 10 pairs, K = 2049) and the global design (the
+  narrowest K the dispatch gives it, short pairs), under edit, affine
+  and two-piece penalties, on edge, unfinished, infeasible and empty
+  pairs, with a run cap that overflows (the defined history rows
+  compared, wfa/batch.py), the walk's steps and round trips equal to
+  their emulation and the first walk (a thread a pair) equal too;
+  `UnifiedAligner(pen).wavefront.align_pairs` over the headline's 16,256
+  oriented pairs, whose scores and CIGARs must equal the dense engine's;
+  at its widest history batch the forward timed beside the global design
+  (equal outputs, and it must be faster) and its plain version, the
+  walk beside the first walk and its plain version, with its longest
+  walker's round trips; `discover_scores` over 5b's 56 oriented pairs
+  against phase 14's long-path scores, and `align_pairs` over them
+  against its CIGARs; at 5b's widest history batch the forward beside
+  the global design, equal and faster.
 
 Each wrapper counts its launches by shape; every count is set to 0 just
 before a path is driven and read just after. Every kernel is held to its
@@ -178,6 +186,30 @@ def time_ms(fn, reps: int) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def time_queued_ms(fn, reps: int) -> float:
+    """Mean milliseconds of fn() over reps back-to-back calls (CUDA
+    events), after one warm-up call; the card sleeps first long enough
+    for the host to queue every launch, so a call shorter than its
+    wrapper's host time is timed at the card's pace."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(max(20_000_000, int(2 * host_s * reps * 1.98e9)))
     start.record()
     for _ in range(reps):
         fn()
@@ -1407,13 +1439,17 @@ def wf_batch_err(a, b, mask=None) -> int:
     return int(d.max()) if d.numel() else 0
 
 
-def wf_batch_case(dev, scores_str, batch, K, s_cap, run_caps):
+def wf_batch_case(dev, scores_str, batch, K, s_cap, run_caps, tier):
     """Both csrc/wf_batch.cu kernels against their plain versions on one
     batch (numpy qs, ts, qlens, tlens), the forward with and without
-    history: scores, done, the defined history rows (0..score of a
-    finished pair, every row of an unfinished one), and at each run cap
-    the walk's ops, lens, nruns and overflow. Returns a row with the
-    largest difference (max_abs_err) and the plain versions' ms."""
+    history in the design its shape picks (which must be `tier`): scores,
+    done, the defined history rows (0..score of a finished pair, every
+    row of an unfinished one); and at each run cap the walk's ops, lens,
+    nruns and overflow, its steps and round trips equal to
+    `wavefront_traceback_rounds`', and the first walk (a thread a pair)
+    equal too. Returns a row with the largest difference (max_abs_err),
+    the design and the plain versions' ms."""
+    import numpy as np
     import torch
 
     from allwave_tpu_torch.core.scores import parse_scores
@@ -1422,7 +1458,10 @@ def wf_batch_case(dev, scores_str, batch, K, s_cap, run_caps):
 
     pen = resolve_penalties(parse_scores(scores_str))
     qs, ts, ql, tl = (torch.from_numpy(a).to(dev) for a in batch)
-    err, plain_ms = 0, {}
+    B, l_pad = qs.shape
+    design = WB.forward_design(K, B, l_pad, pen)
+    check(design.tier == tier, f"the forward's design at B={B} K={K} is {design}, not {tier}")
+    err, plain_ms, rounds = 0, {}, []
     for hist in (False, True):
         sk, dk, hk = WB.wavefront_forward(qs, ts, ql, tl, pen, s_cap, K, hist)
         (sp, dp, hp), plain_ms[f"forward_hist{int(hist)}"] = timed_once(
@@ -1430,16 +1469,69 @@ def wf_batch_case(dev, scores_str, batch, K, s_cap, run_caps):
         err = max(err, wf_batch_err(sk, sp), wf_batch_err(dk, dp))
     err = max(err, wf_batch_hist_err(hk, hp, sp, dp))
     for cap in run_caps:
-        got = WB.wavefront_traceback(hk, sk, ql, tl, pen, cap)
+        stats = torch.zeros((2, B), dtype=torch.int32, device=dev)
+        got = WB.wavefront_traceback(hk, sk, ql, tl, pen, cap, stats=stats)
         want, plain_ms[f"traceback_{cap}"] = timed_once(
             lambda: WB.wavefront_traceback_ref(hp, sp, ql, tl, pen, cap))
-        err = max([err] + [wf_batch_err(a, b) for a, b in zip(got, want)])
+        thread = WB.wavefront_traceback(hk, sk, ql, tl, pen, cap, design="thread")
+        emu = WB.wavefront_traceback_rounds(hp, sp, ql, tl, pen, cap)
+        err = max([err] + [wf_batch_err(a, b) for a, b in zip(got, want)]
+                  + [wf_batch_err(a, b) for a, b in zip(thread, want)]
+                  + [wf_batch_err(stats.cpu(), torch.from_numpy(emu[4]))])
+        rounds.append(int(emu[4][1].max()))
     torch.cuda.synchronize()
-    row = {"scores": scores_str, "B": qs.shape[0], "K": K, "s_cap": s_cap, "l_pad": qs.shape[1],
-           "run_caps": list(run_caps), "max_abs_err": err, "plain_ms": plain_ms,
-           "done": int(dk.sum()), "overflow_at_last_cap": int(got[3].sum())}
+    row = {"scores": scores_str, "B": B, "K": K, "s_cap": s_cap, "l_pad": l_pad,
+           "design": design._asdict(), "run_caps": list(run_caps), "max_abs_err": err,
+           "plain_ms": plain_ms, "done": int(dk.sum()), "rounds_max": rounds,
+           "overflow_at_last_cap": int(got[3].sum())}
     check(err == 0, f"a wf_batch kernel differs from its plain version: {row}")
     return row
+
+
+def wf_batch_first_k(pen, B, l_pad, tier) -> int:
+    """The narrowest band whose forward design for B pairs is `tier`
+    (block, cluster, global: the order they take as K grows), by
+    bisection over the dispatch's table."""
+    from allwave_tpu_torch.wfa import batch as WB
+
+    def rank(K):
+        return WB.TIERS.index(WB.forward_design(K, B, l_pad, pen).tier)
+
+    lo, hi = 1, 1 << 17
+    check(rank(lo) < WB.TIERS.index(tier) <= rank(hi), f"no {tier} design below K = {hi}")
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if rank(mid) < WB.TIERS.index(tier) else (lo, mid)
+    return hi
+
+
+def wf_batch_versus(dev, pen, batch, cap, reps):
+    """The forward at a history batch in the design its shape picks and in
+    the global design, equal (scores, done, the defined history rows) and
+    timed in one call, global, new, new, global (card-paced); the new
+    design's outputs are returned with the row."""
+    import torch
+
+    from allwave_tpu_torch.wfa import batch as WB
+
+    qs, ts, ql, tl = batch
+    B, l_pad = qs.shape
+    K = 2 * cap + 1
+    new = lambda: WB.wavefront_forward(qs, ts, ql, tl, pen, cap, K, True)
+    old = lambda: WB.wavefront_forward(qs, ts, ql, tl, pen, cap, K, True, design="global")
+    sk, dk, hk = new()
+    sg, dg, hg = old()
+    err = max(wf_batch_err(sk, sg), wf_batch_err(dk, dg), wf_batch_hist_err(hk, hg, sg, dg))
+    del hg
+    g0, n0, n1, g1 = (time_queued_ms(f, reps) for f in (old, new, new, old))
+    levels = torch.where(dk, sk, cap).to(torch.int64) + 1
+    row = {"B": B, "K": K, "s_cap": cap, "l_pad": l_pad,
+           "design": WB.forward_design(K, B, l_pad, pen)._asdict(), "ms": [n0, n1],
+           "global_ms": [g0, g1], "versus_global_err": err,
+           "lane_levels": int(levels.sum()) * K, "hist_bytes": 20 * int(levels.sum()) * K}
+    check(err == 0, f"the forward's designs differ at {row}")
+    check(max(n0, n1) < min(g0, g1), f"the forward is not faster than the global design at {row}")
+    return row, (sk, dk, hk)
 
 
 def wf_batch_hist_err(hk, hp, scores, done) -> int:
@@ -1455,35 +1547,53 @@ def wf_batch_hist_err(hk, hp, scores, done) -> int:
 
 def phase21(dev, pen, seqs, pool5b, qi5b, ti5b, wf_out):
     """Phase 21: the batched wavefront engine (wfa/engine.py) and its two
-    kernels (csrc/wf_batch.cu). The kernels against their plain versions
-    at K = 129 and 2049 under three penalty sets; no earlier phase
-    launched them (the main path does not route here); the sharded step
-    over [cuda:0] x 2 against one device; the engine's align_pairs over the headline's 16,256 oriented pairs against the
-    dense engine's scores and CIGARs, both kernels timed beside their
-    plain versions at its widest history batch; discover_scores over
-    5b's 56 oriented pairs against the long path's scores (phase 14),
-    and align_pairs over them against its CIGARs. Returns its report."""
+    kernels (csrc/wf_batch.cu). No earlier phase launched them (the main
+    path does not route here). The kernels against their plain versions
+    in every forward design under three penalty sets: one block a pair
+    (K = 129), a cluster a pair (K = 513 on 10 pairs, three blocks whose
+    edges the wavefronts cross; K = 2049) and the global design (the
+    narrowest K the table gives it); the sharded step over [cuda:0] x 2
+    against one device; the engine's align_pairs over the headline's
+    16,256 oriented pairs against the dense engine's scores and CIGARs;
+    at its widest history batch the forward beside the global design and
+    its plain version, the walk beside the first walk (a thread a pair),
+    its plain version and its round trips; discover_scores over 5b's 56
+    oriented pairs against the long path's scores (phase 14), and
+    align_pairs over them against its CIGARs; at 5b's widest history
+    batch the forward beside the global design. Returns its report."""
     import numpy as np
     import torch
 
     from allwave_tpu_torch.core.scores import parse_scores
     from allwave_tpu_torch.engine.pipeline import AllPairAligner
     from allwave_tpu_torch.parallel.mesh import sharded_alignment_step
-    from allwave_tpu_torch.testing.batches import pair_batch, wavefront_batch
+    from allwave_tpu_torch.testing.batches import pair_batch, random_batch, wavefront_batch
     from allwave_tpu_torch.wfa import batch as WB
+    from allwave_tpu_torch.wfa import cuda_build
     from allwave_tpu_torch.wfa.dense_engine import UnifiedAligner
+    from allwave_tpu_torch.wfa.params import resolve_penalties
 
     counts = (WB.forward_launches, WB.traceback_launches)
     before = [lc.count for lc in counts]
     check(before == [0, 0], f"an earlier phase launched the wf_batch kernels: {before}")
+    # registers and spills of every wf_batch kernel; the ring forward and
+    # the walk may not spill
+    usage = cuda_build.ptxas_usage("wf_batch")
+    print("phase 21 ptxas: " + json.dumps(usage), flush=True)
+    check(all(u.get("spill_stores", 1) == 0 and u.get("spill_loads", 1) == 0
+              for k, u in usage.items() if "ring_kernel" in k or "walk_kernel" in k),
+          "a wf_batch ring forward or walk kernel spills")
 
     # the kernels against their plain versions: the wavefront engine's
     # edge batch at K = 129 (an identical, a tlen == l_pad, an infeasible,
-    # an unfinished and a short pair) with empty pairs, and mutated 1.5 kb
-    # pairs at K = 2049; a run cap that fits and one that overflows
+    # an unfinished and a short pair) with empty pairs, and at K = 513;
+    # mutated 1.5 kb pairs at K = 2049; short pairs at the first global
+    # K; a run cap that fits and one that overflows
     rng = np.random.RandomState(21)
     empty = pair_batch([(b"", b"ACGTT"), (b"ACG", b""), (b"", b"")], 256)
     small = tuple(np.concatenate(x) for x in zip(wavefront_batch(rng, 256, 129), empty))
+    empty1k = pair_batch([(b"", b"ACGTT"), (b"ACG", b""), (b"", b"")], 1024)
+    mid = tuple(np.concatenate(x) for x in zip(wavefront_batch(rng, 1024, 513), empty1k))
     bases = np.frombuffer(b"ACGT", np.uint8)
     wide = []
     for _ in range(6):
@@ -1494,10 +1604,15 @@ def phase21(dev, pen, seqs, pool5b, qi5b, ti5b, wf_out):
         del t[700:703]
         wide.append((q, bytes(t)))
     wide += [(wide[0][0], wide[0][0]), (b"", b""), (b"G" * 2048, b"G" * 2000)]
+    short = tuple(np.concatenate(x) for x in zip(random_batch(rng, 4, 120, 256, 0.01, 60), empty))
     cases = []
     for s in ("0,1,1,1", "0,5,8,2", "0,5,8,2,24,1"):
-        cases.append(wf_batch_case(dev, s, small, 129, 64, (2 * 64 + 16, 5)))
-        cases.append(wf_batch_case(dev, s, pair_batch(wide, 2048), 2049, 1024, (2 * 1024 + 16, 5)))
+        gk = wf_batch_first_k(resolve_penalties(parse_scores(s)), len(short[0]), 256, "global")
+        cases.append(wf_batch_case(dev, s, small, 129, 64, (2 * 64 + 16, 5), "block"))
+        cases.append(wf_batch_case(dev, s, mid, 513, 256, (2 * 256 + 16, 5), "cluster"))
+        cases.append(wf_batch_case(dev, s, pair_batch(wide, 2048), 2049, 1024, (2 * 1024 + 16, 5),
+                                   "cluster"))
+        cases.append(wf_batch_case(dev, s, short, gk, 32, (2 * 32 + 16, 5), "global"))
     for r in cases:
         print("phase 21 kernels: " + json.dumps(r), flush=True)
     # the step sharded over [cuda:0] x 2 gives the single device's outputs
@@ -1522,54 +1637,67 @@ def phase21(dev, pen, seqs, pool5b, qi5b, ti5b, wf_out):
     launches = {"wf_batch_forward": WB.forward_launches.count,
                 "wf_batch_traceback": WB.traceback_launches.count}
     fwd_shapes = dict(WB.forward_launches.shapes)
+    fwd_designs = {k: v.tier + (" staged" if v.staged else "") + f" {v.blocks_per_pair}x"
+                   f"{v.lanes_per_block}" for k, v in WB.forward_launches.designs.items()}
     check(all(v > 0 for v in launches.values()),
           f"the batch engine did not launch both kernels: {launches}")
     check(all(g is not None for g in got), "the batch engine failed pairs of the headline")
     same = [a[0] == b[0] and np.array_equal(a[1], b[1]) for a, b in zip(got, dense)]
     check(all(same), f"the batch engine differs from the dense engine on {same.count(False)} "
           f"of {len(same)} headline pairs")
-    rounds = sorted([B, K, n] for (B, K, _, _, hist), n in fwd_shapes.items() if not hist)
-    hist_batches = sorted([B, K, n] for (B, K, _, _, hist), n in fwd_shapes.items() if hist)
+    rounds = sorted([k[0], k[1], n, fwd_designs[k]] for k, n in fwd_shapes.items() if not k[4])
+    hist_batches = sorted([k[0], k[1], n, fwd_designs[k]] for k, n in fwd_shapes.items() if k[4])
     head = {"pairs": len(pairs), "identical_to_dense": sum(same), "engine_s": engine_s,
-            "launches": launches, "discovery_B_K_launches": rounds,
-            "history_B_K_launches": hist_batches,
+            "launches": launches, "discovery_B_K_launches_design": rounds,
+            "history_B_K_launches_design": hist_batches,
             "max_score": max(g[0] for g in got)}
     print("phase 21 headline: " + json.dumps(head), flush=True)
 
-    # both kernels timed at the widest history batch of the headline run,
-    # beside their plain versions on the same inputs
+    # both kernels timed at the widest history batch of the headline run:
+    # the forward beside the global design and its plain version, the walk
+    # beside the first walk and its plain version, its round trips held
+    # to their emulation
     eng = ua.wavefront
-    caps = [max(eng.config.s_cap_initial, 1 << (max(s, 1) - 1).bit_length()) for s, _ in got]
-    cap = max(caps)
-    bucket = sorted((i for i, c in enumerate(caps) if c == cap),
-                    key=lambda i: len(pairs[i][0]) + len(pairs[i][1]))
-    sub = [pairs[i] for i in bucket[: eng._history_batch_size(cap)]]
-    qs, ts, ql, tl = eng._batch(sub, True)
+
+    def widest_batch(prs, scores):
+        caps = [max(eng.config.s_cap_initial, 1 << (max(int(s), 1) - 1).bit_length())
+                for s in scores]
+        cap = max(caps)
+        bucket = sorted((i for i, c in enumerate(caps) if c == cap),
+                        key=lambda i: len(prs[i][0]) + len(prs[i][1]))
+        return eng._batch([prs[i] for i in bucket[: eng._history_batch_size(cap)]], True), cap
+
+    (qs, ts, ql, tl), cap = widest_batch(pairs, [g[0] for g in got])
     K = 2 * cap + 1
-    fwd = lambda: WB.wavefront_forward(qs, ts, ql, tl, pen, cap, K, True)
-    sk, dk, hk = fwd()
-    fwd_ms = time_ms(fwd, 3)
+    timing, (sk, dk, hk) = wf_batch_versus(dev, pen, (qs, ts, ql, tl), cap, 3)
     (sp, dp, hp), fwd_plain_ms = timed_once(
         lambda: WB.wavefront_forward_ref(qs, ts, ql, tl, pen, cap, K, True))
     f_err = max(wf_batch_err(sk, sp), wf_batch_err(dk, dp), wf_batch_hist_err(hk, hp, sp, dp))
     del hp
     run_cap = 2 * cap + 16
-    tb = lambda: WB.wavefront_traceback(hk, sk, ql, tl, pen, run_cap)
-    out_k = tb()
-    tb_ms = time_ms(tb, 3)
+    B = qs.shape[0]
+    stats = torch.zeros((2, B), dtype=torch.int32, device=dev)
+    out_k = WB.wavefront_traceback(hk, sk, ql, tl, pen, run_cap, stats=stats)
+    warp = lambda: WB.wavefront_traceback(hk, sk, ql, tl, pen, run_cap)
+    thread = lambda: WB.wavefront_traceback(hk, sk, ql, tl, pen, run_cap, design="thread")
+    out_t = thread()
+    t0_ms, w0_ms, w1_ms, t1_ms = (time_queued_ms(f, 20) for f in (thread, warp, warp, thread))
     out_p, tb_plain_ms = timed_once(
         lambda: WB.wavefront_traceback_ref(hk, sp, ql, tl, pen, run_cap))
-    t_err = max(wf_batch_err(a, b) for a, b in zip(out_k, out_p))
+    emu = WB.wavefront_traceback_rounds(hk, sp, ql, tl, pen, run_cap)
+    t_err = max([wf_batch_err(a, b) for a, b in zip(out_k, out_p)]
+                + [wf_batch_err(a, b) for a, b in zip(out_t, out_p)]
+                + [wf_batch_err(stats.cpu(), torch.from_numpy(emu[4]))])
     check(f_err == 0 and t_err == 0, f"the wf_batch kernels differ from their plain versions at "
           f"the headline's history batch: forward {f_err}, traceback {t_err}")
-    levels = torch.where(dk, sk, cap).to(torch.int64) + 1
-    timing = {"B": len(sub), "K": K, "s_cap": cap, "l_pad": qs.shape[1],
-              "forward_ms": fwd_ms, "forward_plain_ms": fwd_plain_ms, "forward_err": f_err,
-              "lane_levels": int(levels.sum()) * K, "hist_bytes": 20 * int(levels.sum()) * K,
-              "traceback_ms": tb_ms, "traceback_plain_ms": tb_plain_ms, "traceback_err": t_err,
-              "run_cap": run_cap, "runs": int(out_k[2].sum())}
+    timing.update({
+        "forward_plain_ms": fwd_plain_ms, "forward_err": f_err,
+        "traceback_ms": [w0_ms, w1_ms], "traceback_thread_ms": [t0_ms, t1_ms],
+        "traceback_plain_ms": tb_plain_ms, "traceback_err": t_err, "run_cap": run_cap,
+        "runs": int(out_k[2].sum()), "steps_max": int(emu[4][0].max()),
+        "rounds_max": int(emu[4][1].max()), "rounds_sum": int(emu[4][1].sum())})
     print("phase 21 headline batch: " + json.dumps(timing), flush=True)
-    del hk, out_k, out_p
+    del hk, out_k, out_p, out_t
 
     # 5b: discovery over its 56 oriented pairs against the long path's
     # scores, then align_pairs over them against the long path's CIGARs
@@ -1597,7 +1725,12 @@ def phase21(dev, pen, seqs, pool5b, qi5b, ti5b, wf_out):
           "history_B_K_launches": sorted([B, K, n] for (B, K, _, _, h), n
                                          in WB.forward_launches.shapes.items() if h)}
     print("phase 21 5b: " + json.dumps(p5), flush=True)
-    return {"kernels": cases, "headline": head, "timing": timing, "5b": p5}
+    # 5b's widest history batch: the forward beside the global design (the
+    # plain version is too slow at this shape)
+    batch5, cap5 = widest_batch(pairs5b, found)
+    widest5, _ = wf_batch_versus(dev, pen, batch5, cap5, 2)
+    print("phase 21 5b widest batch: " + json.dumps(widest5), flush=True)
+    return {"kernels": cases, "headline": head, "timing": timing, "5b": p5, "5b_widest": widest5}
 
 
 def main() -> int:
@@ -2662,6 +2795,17 @@ def main() -> int:
     wfb_fwd_bound = bnd(wt["lane_levels"] * WF_LEVEL_OPS,
                         wt["B"] * (2 * wt["l_pad"] + 13) + wt["hist_bytes"])
     wfb_tb_bound = bnd(wt["runs"] * WALK_OPS, 9 * wt["runs"] + 17 * wt["B"])
+    # the walk's chain: its longest walker's round trips, one after
+    # another, each a device-memory load that misses L2 (the planes are
+    # gigabytes)
+    wfb_tb_bound.update({"chain_bound_ms": wt["rounds_max"] * lat16["dram_ns"] * 1e-6,
+                         "rounds_max": wt["rounds_max"], "steps_max": wt["steps_max"],
+                         "rounds_sum": wt["rounds_sum"]})
+    w5 = wfb["5b_widest"]
+
+    def design_str(d):
+        return f"{d['tier']} {d['blocks_per_pair']}x{d['lanes_per_block']}" + (
+            " staged" if d["staged"] else "")
 
     kernels = [
         {
@@ -2789,9 +2933,16 @@ def main() -> int:
             "source": "allwave_tpu_torch/csrc/wf_batch.cu",
             "replaces": "allwave_tpu/wfa/batch.py:201 (XLA wavefront_forward)",
             "launches": wfb["headline"]["launches"]["wf_batch_forward"],
-            "max_abs_err": max([r["max_abs_err"] for r in wfb["kernels"]] + [wt["forward_err"]]),
-            "ms": wt["forward_ms"], "plain_ms": wt["forward_plain_ms"], **wfb_fwd_bound,
+            "max_abs_err": max([r["max_abs_err"] for r in wfb["kernels"]]
+                               + [wt["forward_err"], wt["versus_global_err"],
+                                  w5["versus_global_err"]]),
+            "ms": max(wt["ms"]), "plain_ms": wt["forward_plain_ms"], **wfb_fwd_bound,
+            "global_ms": wt["global_ms"], "design": design_str(wt["design"]),
             "shape": [wt["B"], wt["K"], wt["l_pad"], wt["s_cap"]],
+            "designs": sorted({design_str(r["design"]) for r in wfb["kernels"]}),
+            "at_5b": {"shape": [w5["B"], w5["K"], w5["l_pad"], w5["s_cap"]],
+                      "design": design_str(w5["design"]), "ms": max(w5["ms"]),
+                      "global_ms": w5["global_ms"]},
         },
         {
             "name": "wf_batch_traceback", "route": "cuda",
@@ -2799,7 +2950,8 @@ def main() -> int:
             "replaces": "allwave_tpu/wfa/batch.py:299 (XLA wavefront_traceback)",
             "launches": wfb["headline"]["launches"]["wf_batch_traceback"],
             "max_abs_err": max([r["max_abs_err"] for r in wfb["kernels"]] + [wt["traceback_err"]]),
-            "ms": wt["traceback_ms"], "plain_ms": wt["traceback_plain_ms"], **wfb_tb_bound,
+            "ms": max(wt["traceback_ms"]), "plain_ms": wt["traceback_plain_ms"], **wfb_tb_bound,
+            "thread_ms": wt["traceback_thread_ms"], "design": "warp a pair",
             "shape": [wt["B"], wt["K"], wt["s_cap"], wt["run_cap"]],
         },
     ]

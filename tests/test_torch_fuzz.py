@@ -13,6 +13,8 @@ shows on the CPU engines (1 of 8 pairs; at 1 kb none). The card runs the
 fuzz at its own sizes (chip_smoke.py phase 20,
 tests/artifacts/FUZZ_GPU.json)."""
 
+import ast
+import hashlib
 import json
 import os
 
@@ -77,6 +79,65 @@ def test_fuzz_runs_on_the_cpu(monkeypatch, tmp_path):
     assert again["cumulative"]["phase1_cases"] == 2 * p1["cases"]
     assert again["cumulative"]["phase2_cases"] == 8
     assert again["cumulative"]["distinct_seed_revisions"] == 2
+
+
+def _artifact_rec(seed, failures, phase1=10, rev=fuzzgen.GENERATOR_REV):
+    return {"seed": seed, "generator_rev": rev, "git": "x", "date": "d", "device": "cpu",
+            "phase1": {"cases": phase1}, "phase2": {"cases": 4}, "failures": failures}
+
+
+def test_artifact_counts_failures_once_per_seed_and_revision(tmp_path):
+    """A rerun of a seed draws the same cases, so its failures are the same
+    failures: the ledger counts each (seed, revision)'s failures once, from
+    its largest run, as it counts its cases."""
+    out = str(tmp_path / "FUZZ_GPU.json")
+    fuzz.write_artifact(out, _artifact_rec(7, 2))
+    fuzz.write_artifact(out, _artifact_rec(7, 2, phase1=12))
+    fuzz.write_artifact(out, _artifact_rec(8, 1))
+    rec = fuzz.write_artifact(out, _artifact_rec(7, 3, rev="other"))
+    assert len(rec["runs"]) == 4
+    assert rec["cumulative"] == {"distinct_seed_revisions": 3, "phase1_cases": 32,
+                                 "phase2_cases": 12, "failures": 6}
+
+
+#: the digest of testing/fuzzgen.py's drawing code at each of its
+#: revisions (`_drawing_digest`): a change to the code without a new
+#: GENERATOR_REV would merge two case streams under one name in the
+#: artifact's ledger
+GENERATOR_DIGESTS = {"fuzz_tpu.py/port-1": "81fccb5f288a89d5"}
+
+
+def _drawing_digest(src: str) -> str:
+    """sha256 (16 hex digits) of a module's syntax tree without its
+    docstrings and its GENERATOR_REV assignment: the code that draws the
+    cases, whatever its comments, docstrings and layout."""
+    tree = ast.parse(src)
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(node, (ast.Module, ast.FunctionDef, ast.ClassDef)) and body
+                and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            node.body = body[1:]
+    tree.body = [n for n in tree.body if not (isinstance(n, ast.Assign) and any(
+        isinstance(t, ast.Name) and t.id == "GENERATOR_REV" for t in n.targets))]
+    return hashlib.sha256(ast.dump(tree).encode()).hexdigest()[:16]
+
+
+def test_generator_revision_names_its_code():
+    """GENERATOR_REV is the revision whose recorded digest the generator's
+    drawing code has; a change to a draw changes the digest, a change to a
+    docstring, comment or the revision's name does not."""
+    with open(fuzzgen.__file__) as f:
+        src = f.read()
+    digest = _drawing_digest(src)
+    assert GENERATOR_DIGESTS.get(fuzzgen.GENERATOR_REV) == digest, (
+        f"testing/fuzzgen.py's drawing code (digest {digest}) is not the code of revision "
+        f"{fuzzgen.GENERATOR_REV!r}: give the generator a new GENERATOR_REV and record its "
+        "digest in GENERATOR_DIGESTS")
+    assert len(set(GENERATOR_DIGESTS.values())) == len(GENERATOR_DIGESTS)
+    assert _drawing_digest(src.replace("rng.randint(1, 9)", "rng.randint(1, 10)")) != digest
+    assert _drawing_digest(src.replace('"""An edit-distance', '"""An edit distance')) == digest
+    assert _drawing_digest(src.replace(fuzzgen.GENERATOR_REV, "renamed")) == digest
 
 
 def test_fuzz_exits_non_zero_without_the_oracle(monkeypatch, tmp_path):

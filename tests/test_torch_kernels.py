@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from allwave_tpu_torch.core.scores import parse_scores
-from allwave_tpu_torch.testing.batches import edge_batch, random_batch
+from allwave_tpu_torch.testing.batches import edge_batch, pair_batch, random_batch
 from allwave_tpu_torch.wfa import dense as TD
 from allwave_tpu_torch.wfa.params import resolve_penalties
 
@@ -845,34 +845,124 @@ def _wf_batch_case(K, l_pad, seed):
     return tuple(np.concatenate(x) for x in zip(main, empty))
 
 
+def _wf_batch_check(qs, ts, ql, tl, pen, s_cap, K, design=None):
+    """csrc/wf_batch.cu's forward (with and without history, in the
+    design its shape picks, or the one forced) and walk against their
+    plain versions: scores, done, the defined history rows (wfa/batch.py's
+    don't-care rule), and the walk's ops, lens, nruns and overflow at a
+    run cap that fits and one that overflows, its steps and round trips
+    equal to `wavefront_traceback_rounds`'. Returns the forward's design."""
+    from allwave_tpu_torch.wfa import batch as WB
+
+    dev = qs.device
+    B = qs.shape[0]
+    WB.forward_launches.reset()
+    WB.traceback_launches.reset()
+    for hist in (False, True):
+        sk, dk, hk = WB.wavefront_forward(qs, ts, ql, tl, pen, s_cap, K, hist, design=design)
+        sp, dp, hp = WB.wavefront_forward_ref(qs, ts, ql, tl, pen, s_cap, K, hist)
+        assert torch.equal(sk, sp) and torch.equal(dk, dp), hist
+    lim = torch.where(dp, sp, s_cap)
+    rows = (torch.arange(s_cap + 1, device=dev)[:, None] <= lim[None, :])[:, :, None]
+    for c in WB.COMPS:
+        assert torch.equal(torch.where(rows, hk[c], 0), torch.where(rows, hp[c], 0)), c
+    for run_cap in (2 * s_cap + 16, 5):
+        stats = torch.zeros((2, B), dtype=torch.int32, device=dev)
+        got = WB.wavefront_traceback(hk, sk, ql, tl, pen, run_cap, stats=stats)
+        want = WB.wavefront_traceback_ref(hp, sp, ql, tl, pen, run_cap)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), run_cap
+        emu = WB.wavefront_traceback_rounds(hp, sp, ql, tl, pen, run_cap)
+        assert np.array_equal(stats.cpu().numpy(), emu[4]), run_cap
+        thread = WB.wavefront_traceback(hk, sk, ql, tl, pen, run_cap, design="thread")
+        assert all(torch.equal(a, b) for a, b in zip(thread, want)), run_cap
+    assert WB.forward_launches.count == 2 and WB.traceback_launches.count == 4
+    torch.cuda.synchronize()
+    (design_ran,) = set(WB.forward_launches.designs.values())
+    return design_ran
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("scores_str", SCORE_SETS)
-@pytest.mark.parametrize("K,s_cap,l_pad", [(129, 64, 256), (2049, 1024, 2048)])
+@pytest.mark.parametrize("K,s_cap,l_pad", [(129, 64, 256), (513, 256, 1024), (2049, 1024, 2048)])
 def test_wf_batch_kernels_match_plain(cuda_device, scores_str, K, s_cap, l_pad):
-    """csrc/wf_batch.cu's forward (with and without history) and walk
-    against their plain versions: scores, done, the defined history rows
-    (wfa/batch.py's don't-care rule), and the walk's ops, lens, nruns
-    and overflow at a run cap that fits and one that overflows."""
+    """The kernels on the edge batch at K = 129 (one block a pair), 513
+    (a cluster of 3 blocks a pair whose block edges the wavefront
+    crosses) and 2049 (a cluster of 8), and in the global design at the
+    same shapes."""
     from allwave_tpu_torch.wfa import batch as WB
 
     pen = resolve_penalties(parse_scores(scores_str))
     qs, ts, ql, tl = (torch.from_numpy(a).to(cuda_device) for a in _wf_batch_case(K, l_pad, K))
-    WB.forward_launches.reset()
-    WB.traceback_launches.reset()
-    for hist in (False, True):
-        sk, dk, hk = WB.wavefront_forward(qs, ts, ql, tl, pen, s_cap, K, hist)
-        sp, dp, hp = WB.wavefront_forward_ref(qs, ts, ql, tl, pen, s_cap, K, hist)
-        assert torch.equal(sk, sp) and torch.equal(dk, dp)
-    lim = torch.where(dp, sp, s_cap)
-    rows = (torch.arange(s_cap + 1, device=cuda_device)[:, None] <= lim[None, :])[:, :, None]
-    for c in WB.COMPS:
-        assert torch.equal(torch.where(rows, hk[c], 0), torch.where(rows, hp[c], 0)), c
-    for run_cap in (2 * s_cap + 16, 5):
-        got = WB.wavefront_traceback(hk, sk, ql, tl, pen, run_cap)
-        want = WB.wavefront_traceback_ref(hp, sp, ql, tl, pen, run_cap)
-        assert all(torch.equal(a, b) for a, b in zip(got, want)), run_cap
-    assert WB.forward_launches.count == 2 and WB.traceback_launches.count == 2
-    torch.cuda.synchronize()
+    g = _wf_batch_check(qs, ts, ql, tl, pen, s_cap, K)
+    assert g == WB.forward_design(K, qs.shape[0], l_pad, pen)
+    assert g.tier == ("block" if K == 129 else "cluster")
+    assert g.blocks_per_pair == {129: 1, 513: 3}.get(K, g.blocks_per_pair) >= 1
+    assert _wf_batch_check(qs, ts, ql, tl, pen, s_cap, K, "global").tier == "global"
+
+
+def _tier_edge(pen, B, l_pad, upper):
+    """The widest K whose design for B pairs the card's dispatch puts
+    before tier `upper` (block, cluster, global: the order they take as K
+    grows), by bisection over the C table."""
+    from allwave_tpu_torch.wfa import batch as WB
+
+    def rank(K):
+        return WB.TIERS.index(WB.forward_design(K, B, l_pad, pen).tier)
+
+    lo, hi = 1, 1 << 17
+    assert rank(lo) < WB.TIERS.index(upper) <= rank(hi)
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if rank(mid) < WB.TIERS.index(upper):
+            lo = mid
+        else:
+            hi = mid
+    return lo
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scores_str", SCORE_SETS)
+@pytest.mark.parametrize("edge", ["spread", "fit", "global", "batch"])
+def test_wf_batch_forward_tier_edges(cuda_device, scores_str, edge):
+    """The forward at the K on each side of every edge of its tier table,
+    as the card's dispatch gives it: a band wider than 256 lanes spreads a
+    pair under the SM count over a cluster (B = 1); a full batch (B = the
+    SM count) keeps one block a pair up to the widest band whose rings fit
+    it; 16 blocks hold the widest cluster band, the next K runs the global
+    design (B = 1); at K = 513 a batch one pair under the SM count runs a
+    cluster and one at it a block. Random pairs of up to 384 bases and
+    empty ones, s_cap 16."""
+    from allwave_tpu_torch.wfa import batch as WB
+
+    pen = resolve_penalties(parse_scores(scores_str))
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    if edge == "batch":
+        sides = [(513, n_sm - 1, "cluster"), (513, n_sm, "block")]
+    else:
+        B, lower, upper = {"spread": (1, "block", "cluster"), "fit": (n_sm, "block", "cluster"),
+                           "global": (1, "cluster", "global")}[edge]
+        K = _tier_edge(pen, B, 512, upper)
+        if edge == "spread":
+            assert K == 256
+        sides = [(K, B, lower), (K + 1, B, upper)]
+    rng = np.random.RandomState(len(edge))
+    for K, B, tier in sides:
+        rand = random_batch(rng, max(B - 3, 1), 384, 512, 0.03)
+        empty = pair_batch([(b"", b"ACGTT"), (b"ACG", b""), (b"", b"")], 512)
+        arrays = [np.concatenate(x)[:B] for x in zip(rand, empty)]
+        qs, ts, ql, tl = (torch.from_numpy(a).to(cuda_device) for a in arrays)
+        assert _wf_batch_check(qs, ts, ql, tl, pen, 16, K).tier == tier, (K, B)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,tier", [(129, "block"), (2049, "cluster"), (40000, "cluster"),
+                                    (70000, "global")])
+def test_wf_batch_single_pair(cuda_device, K, tier):
+    """One pair (B = 1) in each design: a mutated 300-base pair."""
+    pen = resolve_penalties(parse_scores("0,1,1,1"))
+    arrays = random_batch(np.random.RandomState(K), 1, 300, 512, 0.03)
+    qs, ts, ql, tl = (torch.from_numpy(a).to(cuda_device) for a in arrays)
+    assert _wf_batch_check(qs, ts, ql, tl, pen, 32, K).tier == tier
 
 
 @pytest.mark.cuda
