@@ -21,6 +21,7 @@ from .engine.fasta import read_fasta
 from .engine.pipeline import AllPairAligner
 from .engine.progress import ProgressTracker
 from .sparsify.pairs import parse_sparsification
+from .utils.telemetry import counters
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -91,6 +92,19 @@ def build_arg_parser() -> argparse.ArgumentParser:
         "(comma-separated)",
     )
     return p
+
+
+def engine_stats(snap: dict, device) -> str:
+    """The end-of-run stats line: the engines' counts and the host
+    seconds of their four phases (process totals)."""
+    phases = ", ".join(
+        f"{p} {snap['spans'].get('engine.' + p, {}).get('wall_s', 0.0):.3f}"
+        for p in ("plan", "launch", "wait", "unpack")
+    )
+    return (
+        f"engine: {snap['cells'] / 1e9:.2f} G DP cells, {snap['dispatches']} dispatches, "
+        f"{snap['syncs']} syncs, {snap['reruns']} reruns on {device}; host s: {phases}"
+    )
 
 
 def _complete_paf_pair(line: bytes):
@@ -311,22 +325,14 @@ def main(argv: Optional[List[str]] = None) -> int:
 
         aligner.for_each_with_callback(cb)
         q.put(None)
-        wt.join()
+        with counters.span("cli.drain"):
+            wt.join()
         if writer_err:
             raise writer_err[0]
         progress.finish()
-        if not args.no_progress:
-            from .utils.telemetry import counters
-
-            snap = counters.snapshot()
-            if snap["cells"]:
-                print(
-                    f"engine: {snap['cells'] / 1e9:.2f} G DP cells in "
-                    f"{snap['dispatches']} dispatches, "
-                    f"{snap['cells_per_sec'] / 1e9:.2f} Gcells/s on "
-                    f"{aligner.device}",
-                    file=sys.stderr,
-                )
+        snap = counters.snapshot()
+        if not args.no_progress and snap["cells"]:
+            print(engine_stats(snap, aligner.device), file=sys.stderr)
     finally:
         # stop the writer before closing the file — it may be mid-write
         # when the pipeline raises

@@ -30,6 +30,7 @@ from ..core.types import (
 from ..orient.orientation import OrientationIndex
 from ..sparsify.pairs import build_pairs
 from ..device import resolve_device
+from ..utils.telemetry import counters
 from ..wfa.dense_engine import DenseConfig, UnifiedAligner
 from ..wfa.engine import EngineConfig
 from ..wfa.params import resolve_penalties
@@ -260,6 +261,7 @@ class AllPairAligner:
     def for_each_with_callback(
         self, callback: Callable[[AlignmentResult], None]
     ) -> None:
+        counters.begin_run()
         pen = resolve_penalties(self.params)
         eng = UnifiedAligner(
             pen, dense_config=self.dense_config,
@@ -280,11 +282,16 @@ class AllPairAligner:
 
         emit_fut = None
 
-        def _wait_emit():
+        def _emit(*args):
+            """Wait for the previous chunk's emit, then hand this one
+            (none: only wait) to the emit thread."""
             nonlocal emit_fut
-            if emit_fut is not None:
-                f, emit_fut = emit_fut, None
-                f.result()
+            with counters.span("pipeline.emit_wait"):
+                if emit_fut is not None:
+                    f, emit_fut = emit_fut, None
+                    f.result()
+                if args:
+                    emit_fut = ex.submit(self._emit_chunk, callback, *args)
 
         # chunk-level software pipeline: chunk i+1 is ORIENTED and
         # LAUNCHED (device busy) before chunk i's results are
@@ -293,9 +300,10 @@ class AllPairAligner:
         # most one chunk is awaiting collection and one is being
         # emitted at any time — memory stays O(chunk).
         ex = ThreadPoolExecutor(1)
-        pending = None  # (handle, chunk, revs) awaiting .finish()
+        pending = None  # (handle, chunk, revs, chunk index) awaiting .finish()
         try:
-            for lo in range(0, pairs.shape[0], self.chunk_size):
+            for ci, lo in enumerate(range(0, pairs.shape[0], self.chunk_size)):
+                counters.chunk = ci
                 chunk = pairs[lo : lo + self.chunk_size]
                 if run_wide:
                     sl = slice(lo, lo + chunk.shape[0])
@@ -319,28 +327,20 @@ class AllPairAligner:
                     as_runs=True,
                 )
                 if pending is not None:
-                    p_handle, p_chunk, p_revs = pending
+                    p_handle, p_chunk, p_revs, p_ci = pending
+                    counters.chunk = p_ci
                     aligned, stats = p_handle.finish()
-                    _wait_emit()
-                    emit_fut = ex.submit(
-                        self._emit_chunk,
-                        callback,
-                        p_chunk,
-                        p_revs,
-                        aligned,
-                        stats,
-                    )
-                pending = (handle, chunk, revs)
+                    _emit(p_chunk, p_revs, aligned, stats)
+                pending = (handle, chunk, revs, ci)
             if pending is not None:
-                p_handle, p_chunk, p_revs = pending
+                p_handle, p_chunk, p_revs, p_ci = pending
+                counters.chunk = p_ci
                 aligned, stats = p_handle.finish()
-                _wait_emit()
-                emit_fut = ex.submit(
-                    self._emit_chunk, callback, p_chunk, p_revs, aligned, stats
-                )
-            _wait_emit()
+                _emit(p_chunk, p_revs, aligned, stats)
+            _emit()
         finally:
-            ex.shutdown(wait=True)
+            with counters.span("pipeline.emit_wait"):
+                ex.shutdown(wait=True)
 
     @staticmethod
     def _emit_chunk(callback, chunk, revs, aligned, stats) -> None:

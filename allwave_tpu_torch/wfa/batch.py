@@ -52,6 +52,7 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..utils.telemetry import counters
 from .dense import LaunchCount, _check_cuda, _device_kind
 from .params import Penalties
 
@@ -312,6 +313,7 @@ def wavefront_forward(qs, ts, qlens, tlens, pen: Penalties, s_cap: int, k_width:
     one, which exists to be timed beside the others. On the card the
     rows above a finished pair's score are left unwritten (module
     docstring)."""
+    counters.add(dispatches=1)
     if _device_kind(qs) == "cpu":
         if design is not None:
             raise ValueError("the plain version has no designs")
@@ -456,6 +458,7 @@ def wavefront_traceback(hist: dict, scores, qlens, tlens, pen: Penalties, run_ca
     which fills `stats` ((2, B) int32 on the card: steps and round trips
     a pair) when given. design="thread" runs the first design, a thread a
     pair, which exists to be timed beside it and keeps no stats."""
+    counters.add(dispatches=1)
     if _device_kind(scores) == "cpu":
         if stats is not None or design != "warp":
             raise ValueError("the plain walk keeps no stats and has no designs: "

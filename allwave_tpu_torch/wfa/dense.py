@@ -38,6 +38,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..utils.telemetry import counters
 from .params import Penalties
 
 INF = 2**29
@@ -581,6 +582,7 @@ def dense_forward(
     (dense_forward.cu's `dense_forward_finish_kernel`). Same outputs as
     `dense_forward_ref`. `stage_bases` (None: the kernel's choice) is
     for measuring the two ways tier 1 reads the bases."""
+    counters.add(dispatches=1)
     if _device_kind(qs) == "cpu":
         return dense_forward_ref(qs, ts, qlens, tlens, pen, k_width, l_pad)
     from . import cuda_build
@@ -633,6 +635,7 @@ def dense_traceback(planes, scores, cert, qlens, tlens, run_cap: int, stats=None
     uint8: the plain versions for CPU tensors, the
     csrc/dense_traceback.cu kernel for CUDA tensors. `stats` ((2, B)
     int32, CUDA only) receives each pair's hops and round trips."""
+    counters.add(dispatches=1)
     if _device_kind(planes) == "cpu":
         if stats is not None:
             raise ValueError("stats count a kernel's round trips: CUDA tensors only "

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils.telemetry import counters
 from . import dense as D_
 from .batch import expand_runs_batch
 from .engine import BatchWavefrontAligner, EngineConfig
@@ -178,11 +179,12 @@ class DenseBandAligner:
         hit = self._pool_cache.get(key)
         if hit is not None and hit[0] is pool_seqs:
             return hit[1]
-        pool = np.zeros((max(len(pool_seqs), 1), l_pad), dtype=np.uint8)
-        for r, sq in enumerate(pool_seqs):
-            if len(sq) <= l_pad:
-                pool[r, : len(sq)] = np.frombuffer(sq, dtype=np.uint8)
-        pool_dev = torch.from_numpy(pool).to(self.device)
+        with counters.span("engine.plan"):
+            pool = np.zeros((max(len(pool_seqs), 1), l_pad), dtype=np.uint8)
+            for r, sq in enumerate(pool_seqs):
+                if len(sq) <= l_pad:
+                    pool[r, : len(sq)] = np.frombuffer(sq, dtype=np.uint8)
+            pool_dev = torch.from_numpy(pool).to(self.device)
         if len(self._pool_cache) > 4:
             self._pool_cache.clear()
         self._pool_cache[key] = (pool_seqs, pool_dev)
@@ -248,79 +250,80 @@ class DenseBandAligner:
         if n == 0:
             return _ReadyResult((results, stats) if with_stats else results)
 
-        pool_lens = np.fromiter(
-            (len(b) for b in pool_seqs), dtype=np.int64, count=len(pool_seqs)
-        )
-        qlens_all = pool_lens[qidx]
-        tlens_all = pool_lens[tidx]
-        lens = (qlens_all, tlens_all)
-        sum_lens = qlens_all + tlens_all
-        kend_abs_all = np.abs(tlens_all - qlens_all)
-        max_len = int(max(qlens_all.max(), tlens_all.max()))
-        l_pad = _next_pow2(max(max_len, 4))
+        with counters.span("engine.plan"):
+            pool_lens = np.fromiter(
+                (len(b) for b in pool_seqs), dtype=np.int64, count=len(pool_seqs)
+            )
+            qlens_all = pool_lens[qidx]
+            tlens_all = pool_lens[tidx]
+            lens = (qlens_all, tlens_all)
+            sum_lens = qlens_all + tlens_all
+            kend_abs_all = np.abs(tlens_all - qlens_all)
+            max_len = int(max(qlens_all.max(), tlens_all.max()))
+            l_pad = _next_pow2(max(max_len, 4))
 
-        k0 = max(
-            self._round_k(self.config.k_initial),
-            self._round_k(int(kend_abs_all.max()) + 2),
-        )
-        # a band of k_full diagonals covers the whole matrix — widening
-        # past it is pointless (the full-cover certificate always fires)
-        k_full = self._round_k(max(int(sum_lens.max()) + 1, 2))
-        k0 = min(k0, k_full)
-        # run buffers scale with length: a pure-match CIGAR already
-        # needs L/255 runs, and event counts grow with L
-        cap0 = min(
-            max(self.config.run_cap_initial, l_pad // 8), 2 * l_pad + 8
-        )
-        # rounds keyed by (band, run_cap): trace-first at (k0, cap0);
-        # certificate failures jump straight to the band their banded
-        # score certifies; run-buffer overflows rerun at the full cap
-        if sigma_hint is None:
-            rounds: Dict[Tuple[int, int], List[int]] = {
-                (k0, cap0): list(range(n))
-            }
-        else:
-            # The mash-derived hint is an upper-ish estimate (sketch
-            # noise + fixed margin, see pipeline._orient_chunk); shave
-            # 12.5% for rung selection — pairs whose true score exceeds
-            # the narrower band's certificate escalate and stay exact.
-            sig = np.asarray(sigma_hint, dtype=np.int64)
-            ks = self._k_for_scores(sig - (sig >> 3), kend_abs_all)
-            ks = np.maximum(ks, self._round_k(self.config.k_initial))
-            ks = np.maximum(ks, self._round_ks(kend_abs_all + 2))
-            ks = np.minimum(ks, self._round_ks(sum_lens + 1))
-            rounds = {}
-            order = np.argsort(ks, kind="stable")
-            uniq_ks = np.unique(ks)
-            bounds = np.searchsorted(ks[order], uniq_ks)
-            for b, kv in enumerate(uniq_ks):
-                hi = bounds[b + 1] if b + 1 < len(bounds) else n
-                rounds[(int(kv), cap0)] = order[bounds[b] : hi].tolist()
-        pool = (
-            self._device_pool(pool_seqs, l_pad),
-            np.asarray(qidx, dtype=np.int64),
-            np.asarray(tidx, dtype=np.int64),
-            qlens_all.astype(np.int32),
-            tlens_all.astype(np.int32),
-        )
+            k0 = max(
+                self._round_k(self.config.k_initial),
+                self._round_k(int(kend_abs_all.max()) + 2),
+            )
+            # a band of k_full diagonals covers the whole matrix — widening
+            # past it is pointless (the full-cover certificate always fires)
+            k_full = self._round_k(max(int(sum_lens.max()) + 1, 2))
+            k0 = min(k0, k_full)
+            # run buffers scale with length: a pure-match CIGAR already
+            # needs L/255 runs, and event counts grow with L
+            cap0 = min(
+                max(self.config.run_cap_initial, l_pad // 8), 2 * l_pad + 8
+            )
+            # rounds keyed by (band, run_cap): trace-first at (k0, cap0);
+            # certificate failures jump straight to the band their banded
+            # score certifies; run-buffer overflows rerun at the full cap
+            if sigma_hint is None:
+                rounds: Dict[Tuple[int, int], List[int]] = {
+                    (k0, cap0): list(range(n))
+                }
+            else:
+                # The mash-derived hint is an upper-ish estimate (sketch
+                # noise + fixed margin, see pipeline._orient_chunk); shave
+                # 12.5% for rung selection — pairs whose true score exceeds
+                # the narrower band's certificate escalate and stay exact.
+                sig = np.asarray(sigma_hint, dtype=np.int64)
+                ks = self._k_for_scores(sig - (sig >> 3), kend_abs_all)
+                ks = np.maximum(ks, self._round_k(self.config.k_initial))
+                ks = np.maximum(ks, self._round_ks(kend_abs_all + 2))
+                ks = np.minimum(ks, self._round_ks(sum_lens + 1))
+                rounds = {}
+                order = np.argsort(ks, kind="stable")
+                uniq_ks = np.unique(ks)
+                bounds = np.searchsorted(ks[order], uniq_ks)
+                for b, kv in enumerate(uniq_ks):
+                    hi = bounds[b + 1] if b + 1 < len(bounds) else n
+                    rounds[(int(kv), cap0)] = order[bounds[b] : hi].tolist()
+            pool = (
+                self._device_pool(pool_seqs, l_pad),
+                np.asarray(qidx, dtype=np.int64),
+                np.asarray(tidx, dtype=np.int64),
+                qlens_all.astype(np.int32),
+                tlens_all.astype(np.int32),
+            )
 
-        # coalesce small hint-rounds into the next wider band (wider
-        # bands are always exact; certificates only get easier). A
-        # small TOP round merges DOWN into the widest sibling below it:
-        # its pairs were sized from extreme hint noise, and any that
-        # need the wider band fail the narrower certificate and escalate.
-        if len(rounds) > 1:
-            for key in sorted(rounds):
-                if key not in rounds or len(rounds) == 1:
-                    continue
-                if len(rounds[key]) >= 512:
-                    continue
-                siblings = [kk for kk in rounds if kk[1] == key[1] and kk != key]
-                larger = [kk for kk in siblings if kk[0] > key[0]]
-                if larger:
-                    rounds[min(larger)].extend(rounds.pop(key))
-                elif siblings:
-                    rounds[max(siblings)].extend(rounds.pop(key))
+            # coalesce small hint-rounds into the next wider band (wider
+            # bands are always exact; certificates only get easier). A
+            # small TOP round merges DOWN into the widest sibling below it:
+            # its pairs were sized from extreme hint noise, and any that
+            # need the wider band fail the narrower certificate and escalate.
+            if len(rounds) > 1:
+                for key in sorted(rounds):
+                    if key not in rounds or len(rounds) == 1:
+                        continue
+                    if len(rounds[key]) >= 512:
+                        continue
+                    siblings = [kk for kk in rounds if kk[1] == key[1] and kk != key]
+                    larger = [kk for kk in siblings if kk[0] > key[0]]
+                    if larger:
+                        rounds[min(larger)].extend(rounds.pop(key))
+                    elif siblings:
+                        rounds[max(siblings)].extend(rounds.pop(key))
 
         # launch ALL known rounds first, then drain: the device works
         # through every launched group while the host collects the
@@ -330,49 +333,60 @@ class DenseBandAligner:
         def drain_all():
             from concurrent.futures import ThreadPoolExecutor
 
-            from ..utils.telemetry import timed_dispatch
-
             items = list(inflight)
             inflight.clear()
             # a 1-worker thread copies the next buffer to the host while
-            # the main thread unpacks the current one
-            with ThreadPoolExecutor(1) as ex:
+            # the main thread unpacks the current one; starting and
+            # joining it count as waiting on the copies
+            with counters.span("engine.wait"):
+                ex = ThreadPoolExecutor(1)
                 futs = [ex.submit(_to_numpy, it[1]) for it in items]
+            try:
                 for (group, _, kk, cc), fut in zip(items, futs):
-                    with timed_dispatch(len(group), len(group) * 2 * l_pad * kk):
+                    with counters.span("engine.wait"):
                         flat = fut.result()
-                    for i, key in self._collect_group(
-                        group, flat, results, stats, kk, cc, l_pad, lens, as_runs
-                    ):
-                        rounds.setdefault(key, []).append(i)
+                    with counters.span("engine.unpack"):
+                        escalate = self._collect_group(
+                            group, flat, results, stats, kk, cc, l_pad, lens, as_runs
+                        )
+                        for i, key in escalate:
+                            rounds.setdefault(key, []).append(i)
+                        counters.add(
+                            cells=len(group) * 2 * l_pad * kk, syncs=1, reruns=len(escalate)
+                        )
+            finally:
+                with counters.span("engine.wait"):
+                    ex.shutdown(wait=True)
 
         def dispatch_pending():
             """Pop every pending round and launch its groups; returns
             with `rounds` empty and the device busy."""
             while rounds:
-                k, cap = min(rounds)
-                idxs = rounds.pop((k, cap))
-                if k > self.config.k_max:
-                    continue  # left as None: the failed-pair contract
-                # plane budget: (2L, B, K) uint16 per batch
-                per_pair = 2 * (2 * max(l_pad, 128) * k)
-                bsz = int(
-                    max(
-                        1,
-                        min(
-                            self.config.choices_budget_bytes // per_pair,
-                            self.config.max_batch,
-                        ),
+                with counters.span("engine.plan"):
+                    k, cap = min(rounds)
+                    idxs = rounds.pop((k, cap))
+                    if k > self.config.k_max:
+                        continue  # left as None: the failed-pair contract
+                    # plane budget: (2L, B, K) uint16 per batch
+                    per_pair = 2 * (2 * max(l_pad, 128) * k)
+                    bsz = int(
+                        max(
+                            1,
+                            min(
+                                self.config.choices_budget_bytes // per_pair,
+                                self.config.max_batch,
+                            ),
+                        )
                     )
-                )
-                bsz = 1 << (bsz.bit_length() - 1)
-                ia = np.asarray(idxs, dtype=np.int64)
-                ia = ia[np.argsort(sum_lens[ia], kind="stable")]
-                for lo in range(0, ia.size, bsz):
-                    group = ia[lo : lo + bsz]
-                    inflight.append(
-                        (group.tolist(), self._launch_group(group, k, cap, l_pad, pool), k, cap)
-                    )
+                    bsz = 1 << (bsz.bit_length() - 1)
+                    ia = np.asarray(idxs, dtype=np.int64)
+                    ia = ia[np.argsort(sum_lens[ia], kind="stable")]
+                with counters.span("engine.launch"):
+                    for lo in range(0, ia.size, bsz):
+                        group = ia[lo : lo + bsz]
+                        inflight.append(
+                            (group.tolist(), self._launch_group(group, k, cap, l_pad, pool), k, cap)
+                        )
 
         def finish():
             while rounds or inflight:
@@ -562,35 +576,36 @@ class UnifiedAligner:
         stats = np.zeros((n, 4), dtype=np.int64)
         if n == 0:
             return _ReadyResult((results, stats) if with_stats else results)
-        pool_lens = np.fromiter(
-            (len(b) for b in pool_seqs), dtype=np.int64, count=len(pool_seqs)
-        )
-        max_lens = np.maximum(pool_lens[qidx], pool_lens[tidx])
-        sigma_arr = (
-            np.asarray(sigma_hint, dtype=np.int64)
-            if sigma_hint is not None
-            else None
-        )
-        short_mask = max_lens <= self.dense_max_len
-        long_idx = np.flatnonzero(~short_mask).tolist()
-        short_idx = np.flatnonzero(short_mask)
-        # group by padded length (pow2 buckets) to keep sweeps tight
-        ml = np.maximum(max_lens[short_idx], 4)
-        pads = 1 << np.frexp((ml - 1).astype(np.float64))[1]
-        by_pad: Dict[int, List[int]] = {}
-        for pad in np.unique(pads).tolist():
-            by_pad[int(pad)] = short_idx[pads == pad].tolist()
-        # coalesce tiny length-buckets into the next larger one: a
-        # <256-pair bucket costs a full launch chain but only ~2x the
-        # per-pair sweep when merged upward (the dense engine re-derives
-        # l_pad from its own batch)
-        if len(by_pad) > 1:
-            for pad in sorted(by_pad):
-                if len(by_pad) == 1 or len(by_pad[pad]) >= 256:
-                    continue
-                larger = [p for p in by_pad if p > pad]
-                if larger:
-                    by_pad[min(larger)].extend(by_pad.pop(pad))
+        with counters.span("engine.plan"):
+            pool_lens = np.fromiter(
+                (len(b) for b in pool_seqs), dtype=np.int64, count=len(pool_seqs)
+            )
+            max_lens = np.maximum(pool_lens[qidx], pool_lens[tidx])
+            sigma_arr = (
+                np.asarray(sigma_hint, dtype=np.int64)
+                if sigma_hint is not None
+                else None
+            )
+            short_mask = max_lens <= self.dense_max_len
+            long_idx = np.flatnonzero(~short_mask).tolist()
+            short_idx = np.flatnonzero(short_mask)
+            # group by padded length (pow2 buckets) to keep sweeps tight
+            ml = np.maximum(max_lens[short_idx], 4)
+            pads = 1 << np.frexp((ml - 1).astype(np.float64))[1]
+            by_pad: Dict[int, List[int]] = {}
+            for pad in np.unique(pads).tolist():
+                by_pad[int(pad)] = short_idx[pads == pad].tolist()
+            # coalesce tiny length-buckets into the next larger one: a
+            # <256-pair bucket costs a full launch chain but only ~2x the
+            # per-pair sweep when merged upward (the dense engine re-derives
+            # l_pad from its own batch)
+            if len(by_pad) > 1:
+                for pad in sorted(by_pad):
+                    if len(by_pad) == 1 or len(by_pad[pad]) >= 256:
+                        continue
+                    larger = [p for p in by_pad if p > pad]
+                    if larger:
+                        by_pad[min(larger)].extend(by_pad.pop(pad))
         handles: List[Tuple[np.ndarray, object]] = []
         for pad, idxs in sorted(by_pad.items()):
             ia = np.asarray(idxs, dtype=np.int64)
@@ -612,9 +627,10 @@ class UnifiedAligner:
         def finish():
             for ia, h in handles:
                 out, st = h.finish()
-                for i, r in zip(ia.tolist(), out):
-                    results[i] = r
-                stats[ia] = st
+                with counters.span("engine.unpack"):
+                    for i, r in zip(ia.tolist(), out):
+                        results[i] = r
+                    stats[ia] = st
             if long_idx:
                 self._align_long(pool_seqs, qidx, tidx, long_idx, sigma_arr, results, stats)
             return (results, stats) if with_stats else results
@@ -636,15 +652,16 @@ class UnifiedAligner:
         from ..core.cigar import batch_cigar_stats
         from .wf_segmented import WavefrontSegmentedAligner as _W
 
-        ia = np.asarray(long_idx, dtype=np.int64)
-        qi = np.asarray(qidx)[ia]
-        ti = np.asarray(tidx)[ia]
-        hint = sigma_arr[ia].tolist() if sigma_arr is not None else None
-        wfseg = os.environ.get("ALLWAVE_WFSEG")
-        if wfseg is None:
-            use_wf = self.device.type == "cuda" and hint is not None
-        else:
-            use_wf = wfseg == "1"
+        with counters.span("engine.plan"):
+            ia = np.asarray(long_idx, dtype=np.int64)
+            qi = np.asarray(qidx)[ia]
+            ti = np.asarray(tidx)[ia]
+            hint = sigma_arr[ia].tolist() if sigma_arr is not None else None
+            wfseg = os.environ.get("ALLWAVE_WFSEG")
+            if wfseg is None:
+                use_wf = self.device.type == "cuda" and hint is not None
+            else:
+                use_wf = wfseg == "1"
         if use_wf:
             out = self.wf_segmented.align_pairs_indexed(pool_seqs, qi, ti, sigma_hint=hint)
             fb = [j for j, r in enumerate(out) if r is None or r is _W.DENSE_FALLBACK]
@@ -657,9 +674,10 @@ class UnifiedAligner:
                     out[j] = r
         else:
             out = self.segmented.align_pairs_indexed(pool_seqs, qi, ti, sigma_hint=hint)
-        st = batch_cigar_stats(
-            [r[1] if r is not None else np.zeros(0, np.uint8) for r in out]
-        )
-        for row, (i, r) in enumerate(zip(long_idx, out)):
-            results[i] = r
-            stats[i] = st[row]
+        with counters.span("engine.unpack"):
+            st = batch_cigar_stats(
+                [r[1] if r is not None else np.zeros(0, np.uint8) for r in out]
+            )
+            for row, (i, r) in enumerate(zip(long_idx, out)):
+                results[i] = r
+                stats[i] = st[row]

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils.telemetry import to_host
 from . import batch as B_
 from .params import Penalties
 
@@ -127,8 +128,7 @@ class BatchWavefrontAligner:
                 sc, done, _, _, _ = self._run_forward(
                     [pairs[i] for i in idxs], s_cap, with_history=False
                 )
-                sc = sc.cpu().numpy()
-                done_np = done.cpu().numpy()
+                sc, done_np = to_host(sc, done)
                 for j, i in enumerate(idxs):
                     if done_np[j]:
                         scores[i] = int(sc[j])
@@ -177,11 +177,7 @@ class BatchWavefrontAligner:
                     hist, sc, qlens, tlens, self.pen, 2 * cap + 16
                 )
                 del hist
-                ops = ops.cpu().numpy()
-                lens = lens.cpu().numpy()
-                nruns = nruns.cpu().numpy()
-                overflow = overflow.cpu().numpy()
-                sc = sc.cpu().numpy()
+                ops, lens, nruns, overflow, sc = to_host(ops, lens, nruns, overflow, sc)
                 for j, i in enumerate(group):
                     if overflow[j] or sc[j] < 0:
                         continue  # failed -> zeroed PAF upstream

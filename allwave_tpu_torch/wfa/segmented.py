@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils.telemetry import counters, to_host
 from . import dense as D
 from .batch import expand_runs_to_cigar
 from .dense import INF, LaunchCount, band_geometry
@@ -208,6 +209,7 @@ def dense_span(
     receives the state out. c_lo must lie in [0, K - k_sub]
     (`narrow_offsets` keeps it there); the kernel clamps it so that no
     read leaves the state."""
+    counters.add(dispatches=1)
     if D._device_kind(qs) == "cpu":
         st, planes = dense_span_ref(
             qs, ts, qlens, tlens, pen, k_width, l_pad, d_lo, n_steps, state,
@@ -588,6 +590,7 @@ def segment_traceback(planes, d_lo: int, walk, bufs, l_pad: int, c_lo=None, stat
     With stats ((2, B) int32, CUDA only), the kernel writes each walker's
     hops and misses (entries read from device memory, not from a tile)
     of this call there. l_pad is recorded with the launch."""
+    counters.add(dispatches=1)
     if D._device_kind(planes) == "cpu":
         if stats is not None:
             raise ValueError("stats: hops and misses are the kernel's; the plain walk has none")
@@ -754,151 +757,152 @@ class SegmentedDenseAligner:
         results: List[Optional[Tuple[int, np.ndarray]]] = [None] * n
         if n == 0:
             return results
-        qidx = np.asarray(qidx, dtype=np.int64)
-        tidx = np.asarray(tidx, dtype=np.int64)
-        pool_lens = np.fromiter((len(s) for s in pool_seqs), np.int64, len(pool_seqs))
-        ql = pool_lens[qidx]
-        tl = pool_lens[tidx]
-        l_pad = _next_pow2(max(int(max(ql.max(), tl.max())), 4))
-        pool = (self.dense._device_pool(pool_seqs, l_pad), qidx, tidx, ql, tl)
-        C = min(self.config.ckpt_every, 2 * l_pad)
-        kend = np.abs(tl - ql)
-        sums = ql + tl
+        with counters.span("engine.plan"):
+            qidx = np.asarray(qidx, dtype=np.int64)
+            tidx = np.asarray(tidx, dtype=np.int64)
+            pool_lens = np.fromiter((len(s) for s in pool_seqs), np.int64, len(pool_seqs))
+            ql = pool_lens[qidx]
+            tl = pool_lens[tidx]
+            l_pad = _next_pow2(max(int(max(ql.max(), tl.max())), 4))
+            pool = (self.dense._device_pool(pool_seqs, l_pad), qidx, tidx, ql, tl)
+            C = min(self.config.ckpt_every, 2 * l_pad)
+            kend = np.abs(tl - ql)
+            sums = ql + tl
 
-        k0 = max(
-            self._round_k(self.config.k_initial), self._round_k(int(kend.max()) + 2)
-        )
-        k0 = min(k0, self._round_k(max(int(sums.max()) + 1, 2)))
-        cap0 = self._run_cap(l_pad)
-        full_cap = 2 * l_pad + 8
-        if sigma_hint is None:
-            rounds = {(k0, cap0): list(range(n))}
-        else:
-            rounds = {}
-            for i in range(n):
-                # mash hints skew HIGH at the divergences this engine
-                # serves (k-mer Jaccard saturates); shave 25% for the
-                # first band: an under-shave costs one escalation sweep
-                hint = int(sigma_hint[i])
-                ki = max(
-                    self._k_for_score(hint - hint // 4, int(kend[i])),
-                    self._round_k(self.config.k_initial),
-                    self._round_k(int(kend[i]) + 2),
-                )
-                ki = min(ki, self._round_k(int(sums[i]) + 1))
-                rounds.setdefault((ki, cap0), []).append(i)
+            k0 = max(
+                self._round_k(self.config.k_initial), self._round_k(int(kend.max()) + 2)
+            )
+            k0 = min(k0, self._round_k(max(int(sums.max()) + 1, 2)))
+            cap0 = self._run_cap(l_pad)
+            full_cap = 2 * l_pad + 8
+            if sigma_hint is None:
+                rounds = {(k0, cap0): list(range(n))}
+            else:
+                rounds = {}
+                for i in range(n):
+                    # mash hints skew HIGH at the divergences this engine
+                    # serves (k-mer Jaccard saturates); shave 25% for the
+                    # first band: an under-shave costs one escalation sweep
+                    hint = int(sigma_hint[i])
+                    ki = max(
+                        self._k_for_score(hint - hint // 4, int(kend[i])),
+                        self._round_k(self.config.k_initial),
+                        self._round_k(int(kend[i]) + 2),
+                    )
+                    ki = min(ki, self._round_k(int(sums[i]) + 1))
+                    rounds.setdefault((ki, cap0), []).append(i)
         while rounds:
-            k, cap = min(rounds)
-            idxs = rounds.pop((k, cap))
-            if k > self.config.k_max:
-                continue
-            per_pair = 2 * C * k  # one segment's choices+runs
-            bsz = int(max(1, min(self.config.seg_budget_bytes // per_pair, self.config.max_batch)))
-            idxs = sorted(idxs, key=lambda i: int(sums[i]))
+            with counters.span("engine.plan"):
+                k, cap = min(rounds)
+                idxs = rounds.pop((k, cap))
+                if k > self.config.k_max:
+                    continue
+                per_pair = 2 * C * k  # one segment's choices+runs
+                bsz = int(max(1, min(self.config.seg_budget_bytes // per_pair, self.config.max_batch)))
+                idxs = sorted(idxs, key=lambda i: int(sums[i]))
             for lo in range(0, len(idxs), bsz):
                 group = idxs[lo : lo + bsz]
-                for i, key in self._run_group(pool, group, results, k, l_pad, C, cap, full_cap):
+                escalate = self._run_group(pool, group, results, k, l_pad, C, cap, full_cap)
+                counters.add(reruns=len(escalate))
+                for i, key in escalate:
                     rounds.setdefault(key, []).append(i)
         return results
 
     def _run_group(self, pool, group, results, k, l_pad, C, run_cap, full_cap):
         """Sweep, escalate, replay and walk one group at band k; fills
         results and returns [(pair index, (next k, next run_cap))]."""
-        from ..utils.telemetry import counters
-
         pool_dev, qidx, tidx, ql_all, tl_all = pool
         dev = self.device
-        gi = np.asarray(group, dtype=np.int64)
         B = len(group)
         K = k
-        sums = ql_all[gi] + tl_all[gi]
-        n_seg = min(max(1, -(-int(sums.max()) // C)), (2 * l_pad) // C)
-        qs = pool_dev.index_select(0, torch.from_numpy(qidx[gi]).to(dev))
-        ts = pool_dev.index_select(0, torch.from_numpy(tidx[gi]).to(dev))
-        qlens = torch.from_numpy(ql_all[gi].astype(np.int32)).to(dev)
-        tlens = torch.from_numpy(tl_all[gi].astype(np.int32)).to(dev)
+        with counters.span("engine.launch"):
+            gi = np.asarray(group, dtype=np.int64)
+            sums = ql_all[gi] + tl_all[gi]
+            n_seg = min(max(1, -(-int(sums.max()) // C)), (2 * l_pad) // C)
+            qs = pool_dev.index_select(0, torch.from_numpy(qidx[gi]).to(dev))
+            ts = pool_dev.index_select(0, torch.from_numpy(tidx[gi]).to(dev))
+            qlens = torch.from_numpy(ql_all[gi].astype(np.int32)).to(dev)
+            tlens = torch.from_numpy(tl_all[gi].astype(np.int32)).to(dev)
 
-        scores_d, cert_d, ckpts = dense_sweep_ckpt(
-            qs, ts, qlens, tlens, self.pen, K, l_pad, C, n_seg=n_seg
-        )
-        scores = scores_d.cpu().numpy()
-        cert = cert_d.cpu().numpy()
+            scores_d, cert_d, ckpts = dense_sweep_ckpt(
+                qs, ts, qlens, tlens, self.pen, K, l_pad, C, n_seg=n_seg
+            )
+        scores, cert = to_host(scores_d, cert_d)
 
-        escalate = []
-        for j, i in enumerate(group):
-            if cert[j]:
-                continue
-            kend_abs = abs(int(tl_all[i] - ql_all[i]))
-            # strict widening = the next LADDER rung, not 2*k: doubling
-            # can overshoot k_max and drop a pair the next rung certifies
-            nup = self._round_k(k + 1)
-            if nup <= k:  # already at the widest rung: failed pair
-                continue
-            if scores[j] < INF:
-                nk = max(self._k_for_score(int(scores[j]), kend_abs), nup)
-            else:  # no banded score to size from: jump ~2x, on-ladder
-                nk = max(self._round_k(2 * k), nup)
-            nk = min(nk, max(self._round_k(int(sums[j]) + 1), nup))
-            escalate.append((i, (nk, run_cap)))
+        with counters.span("engine.unpack"):
+            escalate = []
+            for j, i in enumerate(group):
+                if cert[j]:
+                    continue
+                kend_abs = abs(int(tl_all[i] - ql_all[i]))
+                # strict widening = the next LADDER rung, not 2*k: doubling
+                # can overshoot k_max and drop a pair the next rung certifies
+                nup = self._round_k(k + 1)
+                if nup <= k:  # already at the widest rung: failed pair
+                    continue
+                if scores[j] < INF:
+                    nk = max(self._k_for_score(int(scores[j]), kend_abs), nup)
+                else:  # no banded score to size from: jump ~2x, on-ladder
+                    nk = max(self._round_k(2 * k), nup)
+                nk = min(nk, max(self._round_k(int(sums[j]) + 1), nup))
+                escalate.append((i, (nk, run_cap)))
         if not cert.any():
             return escalate
 
-        # walkers start at the end cell of each certified pair; their run
-        # buffers hold every run the certified scores allow, so no pair
-        # is re-queued at full_cap to redo its sweep and replay
-        k_end, k0, _ = band_geometry(qlens, tlens, K)
-        d0 = qlens + tlens
-        walk = new_walk(d0, (k_end - k0).clamp(0, K - 1), cert_d & (d0 > 0))
-        bounds = [
-            self._runs_bound(int(scores[j]), int(ql_all[i]), int(tl_all[i]), -(-int(sums[j]) // C))
-            for j, i in enumerate(group) if cert[j]
-        ]
-        cap = min(max([run_cap] + bounds), full_cap)
-        bufs = new_bufs(B, cap, dev)
-        # walkers only move to smaller d: segments above every start are
-        # never visited, and the bound is known on the host, so the
-        # replay loop needs no device->host sync
-        top_seg = min(n_seg - 1, max(0, int(sums.max()) - 1) // C)
-        k_sub = min(K, -(-(2 * C + 320) // _P_COLS) * _P_COLS)
-        for seg in range(top_seg, -1, -1):
-            c_lo = narrow_offsets(walk[1], K, k_sub) if K > k_sub else None
-            _, planes = dense_span(
-                qs, ts, qlens, tlens, self.pen, K, l_pad, seg * C, C,
-                ckpts[:, seg], True, c_lo=c_lo, k_sub=k_sub,
-            )
-            segment_traceback(planes, seg * C, walk, bufs, l_pad, c_lo=c_lo)
-            del planes
-        del ckpts
+        with counters.span("engine.launch"):
+            # walkers start at the end cell of each certified pair; their run
+            # buffers hold every run the certified scores allow, so no pair
+            # is re-queued at full_cap to redo its sweep and replay
+            k_end, k0, _ = band_geometry(qlens, tlens, K)
+            d0 = qlens + tlens
+            walk = new_walk(d0, (k_end - k0).clamp(0, K - 1), cert_d & (d0 > 0))
+            bounds = [
+                self._runs_bound(int(scores[j]), int(ql_all[i]), int(tl_all[i]), -(-int(sums[j]) // C))
+                for j, i in enumerate(group) if cert[j]
+            ]
+            cap = min(max([run_cap] + bounds), full_cap)
+            bufs = new_bufs(B, cap, dev)
+            # walkers only move to smaller d: segments above every start are
+            # never visited, and the bound is known on the host, so the
+            # replay loop needs no device->host sync
+            top_seg = min(n_seg - 1, max(0, int(sums.max()) - 1) // C)
+            k_sub = min(K, -(-(2 * C + 320) // _P_COLS) * _P_COLS)
+            for seg in range(top_seg, -1, -1):
+                c_lo = narrow_offsets(walk[1], K, k_sub) if K > k_sub else None
+                _, planes = dense_span(
+                    qs, ts, qlens, tlens, self.pen, K, l_pad, seg * C, C,
+                    ckpts[:, seg], True, c_lo=c_lo, k_sub=k_sub,
+                )
+                segment_traceback(planes, seg * C, walk, bufs, l_pad, c_lo=c_lo)
+                del planes
+            del ckpts
+        counters.add(cells=B * 2 * (n_seg * C) * k)  # sweep + replay
 
-        counters.add(
-            pairs=B,
-            cells=B * 2 * (n_seg * C) * k,  # sweep + replay
-            dispatches=2 * n_seg,
-        )
-        ops, lens, nrun, overflow = (b.cpu().numpy().copy() for b in bufs)
-        walk_h = walk.cpu().numpy()
-        overflow |= walk_h[3] != 0  # still active: the hop bound ran out
-        # flush the open run of each finished walker
-        for j in range(B):
-            if walk_h[5, j] > 0 and not overflow[j]:
-                if nrun[j] < cap:
-                    ops[j, nrun[j]] = walk_h[4, j]
-                    lens[j, nrun[j]] = walk_h[5, j]
-                    nrun[j] += 1
-                else:
-                    overflow[j] = True
-        for j, i in enumerate(group):
-            if not cert[j]:
-                continue
-            if overflow[j]:
-                # the run buffer or the walk's hop bound ran out: retry
-                # at the full cap, fail there
-                if cap < full_cap:
-                    seg_stats.overflow_reruns += 1
-                    escalate.append((i, (k, full_cap)))
-                else:
-                    results[i] = None
-                continue
-            cigar = expand_runs_to_cigar(ops[j], lens[j].astype(np.int64), int(nrun[j]))
-            results[i] = (int(scores[j]), cigar)
+        ops, lens, nrun, overflow, walk_h = to_host(*bufs, walk)
+        with counters.span("engine.unpack"):
+            ops, lens, nrun, overflow = ops.copy(), lens.copy(), nrun.copy(), overflow.copy()
+            overflow |= walk_h[3] != 0  # still active: the hop bound ran out
+            # flush the open run of each finished walker
+            for j in range(B):
+                if walk_h[5, j] > 0 and not overflow[j]:
+                    if nrun[j] < cap:
+                        ops[j, nrun[j]] = walk_h[4, j]
+                        lens[j, nrun[j]] = walk_h[5, j]
+                        nrun[j] += 1
+                    else:
+                        overflow[j] = True
+            for j, i in enumerate(group):
+                if not cert[j]:
+                    continue
+                if overflow[j]:
+                    # the run buffer or the walk's hop bound ran out: retry
+                    # at the full cap, fail there
+                    if cap < full_cap:
+                        seg_stats.overflow_reruns += 1
+                        escalate.append((i, (k, full_cap)))
+                    else:
+                        results[i] = None
+                    continue
+                cigar = expand_runs_to_cigar(ops[j], lens[j].astype(np.int64), int(nrun[j]))
+                results[i] = (int(scores[j]), cigar)
         return escalate

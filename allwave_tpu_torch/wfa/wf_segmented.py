@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils.telemetry import counters, to_host
 from . import dense as D_
 from .batch import (
     NULL,
@@ -452,6 +453,7 @@ def wf_span(
     kernel for CUDA tensors (same contract as `wf_span_ref`), a cluster
     of blocks a pair as `wf_span_design` says. `ring` may be one slot of
     a checkpoint tensor. c_lo must lie in [0, K - k_sub]."""
+    counters.add(dispatches=1)
     if D_._device_kind(qs) == "cpu":
         return wf_span_ref(
             qs, ts, qlens, tlens, pen, k_width, l_pad, s_lo, n_steps, ring,
@@ -833,6 +835,7 @@ def wf_traceback(hist, ring, s_lo: int, walk, bufs, pen: Penalties, c_lo=None, s
     walker's hops and misses (entries read from device memory, not from
     a tile or the staged head) of this call there. Under the test-only
     `_TB_FLIP` it launches the kernel's FLIP instantiation."""
+    counters.add(dispatches=1)
     if D_._device_kind(hist) == "cpu":
         if stats is not None:
             raise ValueError("stats: hops and misses are the kernel's; the plain walk has none")
@@ -989,61 +992,67 @@ class WavefrontSegmentedAligner:
         if n == 0:
             return results
         cfg = self.config
-        qidx = np.asarray(qidx, dtype=np.int64)
-        tidx = np.asarray(tidx, dtype=np.int64)
-        pool_lens = np.fromiter((len(s) for s in pool_seqs), np.int64, len(pool_seqs))
-        ql = pool_lens[qidx]
-        tl = pool_lens[tidx]
-        l_pad_all = _next_pow2(max(int(max(ql.max(), tl.max())), 32))
-        pool = (self.dense._device_pool(pool_seqs, l_pad_all), qidx, tidx, ql, tl)
-        rounds: Dict[Tuple[int, int], List[int]] = {}
-        for i in range(n):
-            kend_abs = int(abs(tl[i] - ql[i]))
-            if sigma_hint is not None:
-                hint = int(sigma_hint[i])
-                hq = self._quantize_hint(hint)
-                si = self._s_cap_for_hint(hq)
-                # K from a 1.25x quantized-hint margin (the reference's
-                # Pallas route); certificate failures escalate exactly
-                ki = self._k_for_score(hq * 5 // 4, kend_abs)
-                # a hint whose own certificate needs a band above k_max
-                # ends in fallback anyway: skip the sweep
-                if self._k_for_score(hint, kend_abs) > cfg.k_max:
+        with counters.span("engine.plan"):
+            qidx = np.asarray(qidx, dtype=np.int64)
+            tidx = np.asarray(tidx, dtype=np.int64)
+            pool_lens = np.fromiter((len(s) for s in pool_seqs), np.int64, len(pool_seqs))
+            ql = pool_lens[qidx]
+            tl = pool_lens[tidx]
+            l_pad_all = _next_pow2(max(int(max(ql.max(), tl.max())), 32))
+            pool = (self.dense._device_pool(pool_seqs, l_pad_all), qidx, tidx, ql, tl)
+            rounds: Dict[Tuple[int, int], List[int]] = {}
+            for i in range(n):
+                kend_abs = int(abs(tl[i] - ql[i]))
+                if sigma_hint is not None:
+                    hint = int(sigma_hint[i])
+                    hq = self._quantize_hint(hint)
+                    si = self._s_cap_for_hint(hq)
+                    # K from a 1.25x quantized-hint margin (the reference's
+                    # Pallas route); certificate failures escalate exactly
+                    ki = self._k_for_score(hq * 5 // 4, kend_abs)
+                    # a hint whose own certificate needs a band above k_max
+                    # ends in fallback anyway: skip the sweep
+                    if self._k_for_score(hint, kend_abs) > cfg.k_max:
+                        results[i] = self.DENSE_FALLBACK
+                        continue
+                else:
+                    ki = self._round_k(max(cfg.k_initial, kend_abs + 2))
+                    si = self._round_up_seg(cfg.s_cap_initial)
+                if ki > cfg.k_max or si > cfg.s_cap_max:
                     results[i] = self.DENSE_FALLBACK
                     continue
-            else:
-                ki = self._round_k(max(cfg.k_initial, kend_abs + 2))
-                si = self._round_up_seg(cfg.s_cap_initial)
-            if ki > cfg.k_max or si > cfg.s_cap_max:
-                results[i] = self.DENSE_FALLBACK
-                continue
-            rounds.setdefault((ki, si), []).append(i)
+                rounds.setdefault((ki, si), []).append(i)
 
-        # rounds sharing a band width merge at the largest score cap: the
-        # cap changes no byte (the sweep stops per pair, replay depth and
-        # run caps derive from scores), while K stays the pair's own
-        by_k: Dict[int, Tuple[int, List[int]]] = {}
-        for (ki, si), idxs in rounds.items():
-            s_prev, lst = by_k.get(ki, (0, []))
-            by_k[ki] = (max(s_prev, si), lst + idxs)
-        rounds = {(ki, si): idxs for ki, (si, idxs) in by_k.items()}
+            # rounds sharing a band width merge at the largest score cap: the
+            # cap changes no byte (the sweep stops per pair, replay depth and
+            # run caps derive from scores), while K stays the pair's own
+            by_k: Dict[int, Tuple[int, List[int]]] = {}
+            for (ki, si), idxs in rounds.items():
+                s_prev, lst = by_k.get(ki, (0, []))
+                by_k[ki] = (max(s_prev, si), lst + idxs)
+            rounds = {(ki, si): idxs for ki, (si, idxs) in by_k.items()}
 
         _, _, P = ring_layout(self.pen)
         C = cfg.ckpt_every
         k_sub = -(-(2 * C + 320) // 512) * 512
         while rounds:
-            k, s_cap = min(rounds)
-            idxs = rounds.pop((k, s_cap))
-            if k > cfg.k_max or s_cap > cfg.s_cap_max:
-                for i in idxs:
-                    results[i] = self.DENSE_FALLBACK
-                continue
-            per_pair = 4 * k * (s_cap // C + 1) * P + 4 * min(k, k_sub) * 5 * C
-            bsz = int(max(1, min(cfg.budget_bytes // per_pair, cfg.max_batch)))
-            idxs = sorted(idxs, key=lambda i: int(ql[i] + tl[i]))
+            with counters.span("engine.plan"):
+                k, s_cap = min(rounds)
+                idxs = rounds.pop((k, s_cap))
+                if k > cfg.k_max or s_cap > cfg.s_cap_max:
+                    for i in idxs:
+                        results[i] = self.DENSE_FALLBACK
+                    continue
+                per_pair = 4 * k * (s_cap // C + 1) * P + 4 * min(k, k_sub) * 5 * C
+                bsz = int(max(1, min(cfg.budget_bytes // per_pair, cfg.max_batch)))
+                idxs = sorted(idxs, key=lambda i: int(ql[i] + tl[i]))
             for lo in range(0, len(idxs), bsz):
                 group = idxs[lo : lo + bsz]
-                for i, key in self._run_group(pool, group, results, k, s_cap, k_sub):
+                escalate = self._run_group(pool, group, results, k, s_cap, k_sub)
+                # escalated pairs run again here, handed-back ones on the
+                # segmented engine
+                counters.add(reruns=len(escalate))
+                for i, key in escalate:
                     if key is None:
                         results[i] = self.DENSE_FALLBACK
                     else:
@@ -1056,7 +1065,6 @@ class WavefrontSegmentedAligner:
         _run_group_pallas); fills results and returns
         [(pair index, (next k, next s_cap) | None)], None meaning
         DENSE_FALLBACK."""
-        from ..utils.telemetry import counters
         from .dense_engine import _next_pow2
         from .segmented import narrow_offsets
 
@@ -1065,85 +1073,88 @@ class WavefrontSegmentedAligner:
         C = cfg.ckpt_every
         pool_dev, qidx, tidx, ql_all, tl_all = pool
         dev = self.device
-        gi = np.asarray(group, dtype=np.int64)
         B = len(group)
-        qlens = ql_all[gi].astype(np.int32)
-        tlens = tl_all[gi].astype(np.int32)
-        l_pad = _next_pow2(max(int(max(qlens.max(), tlens.max())), 32))
-        rows = pool_dev[:, :l_pad]
-        qs = rows.index_select(0, torch.from_numpy(qidx[gi]).to(dev))
-        ts = rows.index_select(0, torch.from_numpy(tidx[gi]).to(dev))
-        ql_d = torch.from_numpy(qlens).to(dev)
-        tl_d = torch.from_numpy(tlens).to(dev)
+        with counters.span("engine.launch"):
+            gi = np.asarray(group, dtype=np.int64)
+            qlens = ql_all[gi].astype(np.int32)
+            tlens = tl_all[gi].astype(np.int32)
+            l_pad = _next_pow2(max(int(max(qlens.max(), tlens.max())), 32))
+            rows = pool_dev[:, :l_pad]
+            qs = rows.index_select(0, torch.from_numpy(qidx[gi]).to(dev))
+            ts = rows.index_select(0, torch.from_numpy(tidx[gi]).to(dev))
+            ql_d = torch.from_numpy(qlens).to(dev)
+            tl_d = torch.from_numpy(tlens).to(dev)
 
-        init = wf_init(qs, ts, ql_d, tl_d, pen, k)
-        ckpts, _, done_d, scores_d = wf_span(
-            qs, ts, ql_d, tl_d, pen, k, l_pad, 0, s_cap, init.seeds, False,
-            ckpt_every=C, done=init.done0, scores=init.scores0,
-        )
-        scores_h = scores_d.cpu().numpy()
-        done_h = done_d.cpu().numpy()
-        wf_stats.rounds.append((k, s_cap, B))
-        # a pair's sweep stops after the level it finished at
-        sweep_ll = int(np.where(done_h, scores_h, s_cap).sum()) * k
-        wf_stats.sweep_lane_levels += sweep_ll
+            init = wf_init(qs, ts, ql_d, tl_d, pen, k)
+            ckpts, _, done_d, scores_d = wf_span(
+                qs, ts, ql_d, tl_d, pen, k, l_pad, 0, s_cap, init.seeds, False,
+                ckpt_every=C, done=init.done0, scores=init.scores0,
+            )
+        scores_h, done_h = to_host(scores_d, done_d)
+        with counters.span("engine.unpack"):
+            wf_stats.rounds.append((k, s_cap, B))
+            # a pair's sweep stops after the level it finished at
+            sweep_ll = int(np.where(done_h, scores_h, s_cap).sum()) * k
+            wf_stats.sweep_lane_levels += sweep_ll
 
-        # certificate: the exit-and-return bound of the dense engines
-        k_end = tlens.astype(np.int64) - qlens.astype(np.int64)
-        slack = (k - 1 - np.abs(k_end)) // 2
-        nn = np.maximum(slack, 0) + 1
-        g1 = pen.o1 + nn * pen.e1
-        esc_bound = 2 * np.minimum(g1, pen.o2 + nn * pen.e2 if pen.two_piece else g1)
-        k0_h = np.minimum(0, k_end) - slack
-        full_cover = (k0_h <= -qlens) & (k0_h + (k - 1) >= tlens)
-        cert = done_h & ((scores_h < esc_bound) | full_cover)
+            # certificate: the exit-and-return bound of the dense engines
+            k_end = tlens.astype(np.int64) - qlens.astype(np.int64)
+            slack = (k - 1 - np.abs(k_end)) // 2
+            nn = np.maximum(slack, 0) + 1
+            g1 = pen.o1 + nn * pen.e1
+            esc_bound = 2 * np.minimum(g1, pen.o2 + nn * pen.e2 if pen.two_piece else g1)
+            k0_h = np.minimum(0, k_end) - slack
+            full_cover = (k0_h <= -qlens) & (k0_h + (k - 1) >= tlens)
+            cert = done_h & ((scores_h < esc_bound) | full_cover)
 
-        escalate: List[Tuple[int, Optional[Tuple[int, int]]]] = []
-        for j, i in enumerate(group):
-            if not done_h[j]:
-                ns = s_cap * cfg.s_cap_growth
-                escalate.append((i, None if ns > cfg.s_cap_max else (k, ns)))
-            elif not cert[j]:
-                nk = max(self._k_for_score(int(scores_h[j]), int(abs(k_end[j]))), 2 * k)
-                escalate.append((i, None if nk > cfg.k_max else (nk, self._round_up_seg(s_cap))))
+            escalate: List[Tuple[int, Optional[Tuple[int, int]]]] = []
+            for j, i in enumerate(group):
+                if not done_h[j]:
+                    ns = s_cap * cfg.s_cap_growth
+                    escalate.append((i, None if ns > cfg.s_cap_max else (k, ns)))
+                elif not cert[j]:
+                    nk = max(self._k_for_score(int(scores_h[j]), int(abs(k_end[j]))), 2 * k)
+                    escalate.append((i, None if nk > cfg.k_max else (nk, self._round_up_seg(s_cap))))
         if not cert.any():
             return escalate
 
         # ---- backward replay + walk ----
-        run_cap = self._run_cap(scores_h, cert)
-        cert_d = torch.from_numpy(cert).to(dev)
-        walk = new_walk(
-            torch.from_numpy(np.where(cert, scores_h, -1).astype(np.int32)).to(dev),
-            init.c_end, tl_d, cert_d & (tl_d + ql_d > 0),
-        )
-        bufs = new_bufs(B, run_cap, dev)
-        smax = int(scores_h[cert].max())
-        # at least one pass from slot 0, even when every pair finished at
-        # score 0 (the origin M-run emit happens in a segment walk)
-        top = min(max(0, (smax - 1) // C), s_cap // C - 1)
-        narrow = k > k_sub
-        for seg in range(top, -1, -1):
-            ring = ckpts[seg]
-            c_lo = narrow_offsets(walk[1], k, k_sub) if narrow else None
-            _, hist, _, _ = wf_span(
-                qs, ts, ql_d, tl_d, pen, k, l_pad, seg * C, C, ring, True,
-                c_lo=c_lo, k_sub=k_sub if narrow else None,
+        with counters.span("engine.launch"):
+            run_cap = self._run_cap(scores_h, cert)
+            cert_d = torch.from_numpy(cert).to(dev)
+            walk = new_walk(
+                torch.from_numpy(np.where(cert, scores_h, -1).astype(np.int32)).to(dev),
+                init.c_end, tl_d, cert_d & (tl_d + ql_d > 0),
             )
-            wf_traceback(hist, ring, seg * C, walk, bufs, pen, c_lo=c_lo)
-            del hist
-        del ckpts
+            bufs = new_bufs(B, run_cap, dev)
+            smax = int(scores_h[cert].max())
+            # at least one pass from slot 0, even when every pair finished at
+            # score 0 (the origin M-run emit happens in a segment walk)
+            top = min(max(0, (smax - 1) // C), s_cap // C - 1)
+            narrow = k > k_sub
+            for seg in range(top, -1, -1):
+                ring = ckpts[seg]
+                c_lo = narrow_offsets(walk[1], k, k_sub) if narrow else None
+                _, hist, _, _ = wf_span(
+                    qs, ts, ql_d, tl_d, pen, k, l_pad, seg * C, C, ring, True,
+                    c_lo=c_lo, k_sub=k_sub if narrow else None,
+                )
+                wf_traceback(hist, ring, seg * C, walk, bufs, pen, c_lo=c_lo)
+                del hist
+            del ckpts
         replay_ll = B * (top + 1) * C * (k_sub if narrow else k)
         wf_stats.replay_lane_levels += replay_ll
-        counters.add(pairs=B, cells=sweep_ll + replay_ll, dispatches=2 + 2 * (top + 1))
+        counters.add(cells=sweep_ll + replay_ll)
 
-        ops, lens, nrun, overflow = (b.cpu().numpy() for b in bufs)
-        overflow = overflow | (walk[4].cpu().numpy() != 0)
-        for j, i in enumerate(group):
-            if not cert[j]:
-                continue
-            if overflow[j]:
-                escalate.append((i, None))
-                continue
-            cigar = expand_runs_to_cigar(ops[j], lens[j].astype(np.int64), int(nrun[j]))
-            results[i] = (int(scores_h[j]), cigar)
+        ops, lens, nrun, overflow, active = to_host(*bufs, walk[4])
+        with counters.span("engine.unpack"):
+            overflow = overflow | (active != 0)
+            for j, i in enumerate(group):
+                if not cert[j]:
+                    continue
+                if overflow[j]:
+                    escalate.append((i, None))
+                    continue
+                cigar = expand_runs_to_cigar(ops[j], lens[j].astype(np.int64), int(nrun[j]))
+                results[i] = (int(scores_h[j]), cigar)
         return escalate

@@ -27,7 +27,6 @@ COPIES = [
     "engine/progress.py",
     "native.py",
     "utils/__init__.py",
-    "utils/telemetry.py",
     "wfa/__init__.py",
     "wfa/params.py",
     "wfa/reference_impl.py",
