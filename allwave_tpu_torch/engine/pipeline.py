@@ -31,6 +31,7 @@ from ..orient.orientation import OrientationIndex
 from ..sparsify.pairs import build_pairs
 from ..device import resolve_device
 from ..utils.telemetry import counters
+from ..wfa.batch import expand_runs
 from ..wfa.dense_engine import DenseConfig, UnifiedAligner
 from ..wfa.engine import EngineConfig
 from ..wfa.params import resolve_penalties
@@ -59,9 +60,7 @@ def _result_from_cigar(
     else:
         arr = cigar if not is_runs else None
         if arr is None:
-            arr = np.repeat(
-                np.asarray(cigar[0], np.uint8), np.asarray(cigar[1], np.int64)
-            )
+            arr = expand_runs(*cigar)
             cigar = arr
             is_runs = False
         num_matches, alignment_length = count_cigar_operations(arr)

@@ -9,7 +9,10 @@ Counters, added where the work happens:
   wait;
 * `reruns`: pairs queued to be aligned again (band, run-cap or score-cap
   escalations, and the wavefront engine's hand-backs to the segmented
-  engine).
+  engine);
+* `expansions`: pairs whose per-base CIGAR byte array the port builds
+  from its runs (a caller that asks for runs, as the pipeline does,
+  builds none).
 
 Spans (`counters.span(name)`) time the host's phases by name: count,
 wall seconds (`perf_counter_ns`) and the thread's CPU seconds
@@ -112,6 +115,7 @@ class EngineCounters:
         self.dispatches = 0
         self.syncs = 0
         self.reruns = 0
+        self.expansions = 0
         self._spans: Dict[str, List[int]] = {}
         self._log: List[SpanRecord] = []
         self._offset_ns: Optional[int] = None
@@ -121,12 +125,14 @@ class EngineCounters:
         self.run = 0
         self.chunk: Optional[int] = None
 
-    def add(self, cells: int = 0, dispatches: int = 0, syncs: int = 0, reruns: int = 0) -> None:
+    def add(self, cells: int = 0, dispatches: int = 0, syncs: int = 0, reruns: int = 0,
+            expansions: int = 0) -> None:
         with self._lock:
             self.cells += cells
             self.dispatches += dispatches
             self.syncs += syncs
             self.reruns += reruns
+            self.expansions += expansions
 
     def span(self, name: str) -> _Span:
         """`with counters.span(name): ...` times the block."""
@@ -151,6 +157,7 @@ class EngineCounters:
                 "dispatches": self.dispatches,
                 "syncs": self.syncs,
                 "reruns": self.reruns,
+                "expansions": self.expansions,
                 "spans": {
                     name: {"count": n, "wall_s": wall / 1e9, "cpu_s": cpu / 1e9}
                     for name, (n, wall, cpu) in self._spans.items()
@@ -163,6 +170,7 @@ class EngineCounters:
             self.dispatches = 0
             self.syncs = 0
             self.reruns = 0
+            self.expansions = 0
             self._spans.clear()
             self._log.clear()
             self._offset_ns = _clock_offset()

@@ -605,15 +605,25 @@ def wavefront_traceback_rounds(hist: dict, scores, qlens, tlens, pen: Penalties,
     return ops, lens, nruns, overflow, stats
 
 
+def walk_runs(ops_row: np.ndarray, lens_row: np.ndarray, n: int):
+    """The walk's first n end-to-start runs as start-to-end (ops, lens)
+    views. Zero-length runs and adjacent runs of one op may remain; the
+    PAF writer (`core.cigar.runs_to_cigar_string`) skips the first and
+    merges the second."""
+    return ops_row[:n][::-1], lens_row[:n][::-1]
+
+
+def expand_runs(ops, lens) -> np.ndarray:
+    """Start-to-end runs as the per-base WFA2-convention cigar byte
+    array; counted in `counters.expansions`."""
+    counters.add(expansions=1)
+    return np.repeat(np.asarray(ops, dtype=np.uint8), np.asarray(lens, dtype=np.int64))
+
+
 def expand_runs_to_cigar(ops_row: np.ndarray, lens_row: np.ndarray, n: int) -> np.ndarray:
     """Reverse the walk's end-to-start runs and expand them to the
     per-base WFA2-convention cigar byte array."""
-    if n == 0:
-        return np.zeros(0, dtype=np.uint8)
-    ops = ops_row[:n][::-1]
-    lens = lens_row[:n][::-1]
-    keep = lens > 0
-    return np.repeat(ops[keep], lens[keep]).astype(np.uint8)
+    return expand_runs(*walk_runs(ops_row, lens_row, n))
 
 
 def expand_runs_batch(ops, lens, nruns):
@@ -621,6 +631,7 @@ def expand_runs_batch(ops, lens, nruns):
     buffers into per-pair per-base cigar byte arrays with ONE np.repeat.
     Returns a list of views into one backing buffer."""
     B, cap = ops.shape
+    counters.add(expansions=B)
     valid = np.arange(cap, dtype=np.int32)[None, :] < np.asarray(nruns)[:, None]
     l64 = lens.astype(np.int64) * valid
     ops_r = ops[:, ::-1]
@@ -629,3 +640,29 @@ def expand_runs_batch(ops, lens, nruns):
     offs = np.zeros(B + 1, dtype=np.int64)
     np.cumsum(lens_r.sum(axis=1), out=offs[1:])
     return [expanded[offs[i] : offs[i + 1]] for i in range(B)]
+
+
+#: op byte -> column of `runs_stats`' per-op sums (4: any other byte)
+_STAT_COL = np.full(256, 4, dtype=np.int64)
+_STAT_COL[[_OP_M, _OP_X, _OP_I, _OP_D]] = np.arange(4)
+
+
+def runs_stats(runs) -> np.ndarray:
+    """PAF stats of a list of (ops, lens) run pairs (None = failed): one
+    (n, 4) int64 array of [num_matches, alignment_length, query_len,
+    target_len] rows, as `core.cigar.batch_cigar_stats` gives them for
+    the expanded arrays (M and X consume both sequences, I the target,
+    D the query; a None row reads zeros), from one weighted bincount
+    over the runs instead of a pass over every base."""
+    n = len(runs)
+    sizes = np.fromiter((0 if r is None else len(r[0]) for r in runs), np.int64, n)
+    if not sizes.any():
+        return np.zeros((n, 4), dtype=np.int64)
+    held = [r for r in runs if r is not None]
+    ops = np.concatenate([np.asarray(r[0], dtype=np.uint8) for r in held])
+    lens = np.concatenate([np.asarray(r[1], dtype=np.int64) for r in held])
+    key = np.repeat(np.arange(0, 5 * n, 5, dtype=np.int64), sizes) + _STAT_COL[ops]
+    # float64 weights sum integers exactly below 2**53
+    per_op = np.bincount(key, weights=lens, minlength=5 * n).reshape(n, 5).astype(np.int64)
+    m, x, i, d = per_op[:, :4].T
+    return np.stack([m, m + x, m + x + d, m + x + i], axis=1)

@@ -632,12 +632,14 @@ class UnifiedAligner:
                         results[i] = r
                     stats[ia] = st
             if long_idx:
-                self._align_long(pool_seqs, qidx, tidx, long_idx, sigma_arr, results, stats)
+                self._align_long(pool_seqs, qidx, tidx, long_idx, sigma_arr, results, stats,
+                                 as_runs)
             return (results, stats) if with_stats else results
 
         return _AsyncResult(finish)
 
-    def _align_long(self, pool_seqs, qidx, tidx, long_idx, sigma_arr, results, stats):
+    def _align_long(self, pool_seqs, qidx, tidx, long_idx, sigma_arr, results, stats,
+                    as_runs):
         """Long-pair leg (reference: UnifiedAligner._align_long). On a
         CUDA device hinted pairs go to the wavefront engine first, as the
         reference sends them to its Pallas engine on the TPU; on the CPU
@@ -646,10 +648,11 @@ class UnifiedAligner:
         wavefront engine would probe its band and score cap by
         escalation). ALLWAVE_WFSEG=0 or 1 forces the route. Pairs the
         wavefront engine hands back go to the segmented engine with
-        their hints. Results are per-base cigar arrays even when the
-        short pairs come back as runs. Fills results and stats in
-        place."""
-        from ..core.cigar import batch_cigar_stats
+        their hints. Both engines hand back their walks' runs, and the
+        stats are taken from them; with as_runs=False each is then
+        expanded to its per-base cigar array. Fills results and stats
+        in place."""
+        from .batch import expand_runs, runs_stats
         from .wf_segmented import WavefrontSegmentedAligner as _W
 
         with counters.span("engine.plan"):
@@ -663,21 +666,26 @@ class UnifiedAligner:
             else:
                 use_wf = wfseg == "1"
         if use_wf:
-            out = self.wf_segmented.align_pairs_indexed(pool_seqs, qi, ti, sigma_hint=hint)
+            out = self.wf_segmented.align_pairs_indexed(
+                pool_seqs, qi, ti, sigma_hint=hint, as_runs=True
+            )
             fb = [j for j, r in enumerate(out) if r is None or r is _W.DENSE_FALLBACK]
             if fb:
                 dense_out = self.segmented.align_pairs_indexed(
                     pool_seqs, qi[fb], ti[fb],
                     sigma_hint=[hint[j] for j in fb] if hint is not None else None,
+                    as_runs=True,
                 )
                 for j, r in zip(fb, dense_out):
                     out[j] = r
         else:
-            out = self.segmented.align_pairs_indexed(pool_seqs, qi, ti, sigma_hint=hint)
-        with counters.span("engine.unpack"):
-            st = batch_cigar_stats(
-                [r[1] if r is not None else np.zeros(0, np.uint8) for r in out]
+            out = self.segmented.align_pairs_indexed(
+                pool_seqs, qi, ti, sigma_hint=hint, as_runs=True
             )
+        with counters.span("engine.unpack"):
+            st = runs_stats([r[1] if r is not None else None for r in out])
             for row, (i, r) in enumerate(zip(long_idx, out)):
+                if r is not None and not as_runs:
+                    r = (r[0], expand_runs(*r[1]))
                 results[i] = r
                 stats[i] = st[row]

@@ -47,7 +47,7 @@ import torch
 from ..device import resolve_device
 from ..utils.telemetry import counters, to_host
 from . import dense as D
-from .batch import expand_runs_to_cigar
+from .batch import expand_runs_to_cigar, walk_runs
 from .dense import INF, LaunchCount, band_geometry
 from .params import Penalties
 
@@ -739,17 +739,21 @@ class SegmentedDenseAligner:
         bound = 2 * (score // g) + score // (255 * u) + min(qlen, tlen) // 255 + n_seg
         return min(bound, every)
 
-    def align_pairs(self, pairs: List[Tuple[bytes, bytes]], sigma_hint=None):
+    def align_pairs(self, pairs: List[Tuple[bytes, bytes]], sigma_hint=None,
+                    as_runs: bool = False):
         """[(score, per-base cigar)] in input order (None = failed).
         sigma_hint: optional per-pair estimated scores (mash-derived);
         a pair then starts at the band its shaved estimate certifies
-        instead of probing narrow and escalating through full sweeps."""
+        instead of probing narrow and escalating through full sweeps.
+        as_runs=True: each cigar comes back as (ops, lens) run pairs in
+        start->end order instead of a per-base byte array."""
         from .dense_engine import _pool_pairs
 
         pool_seqs, qidx, tidx = _pool_pairs(pairs)
-        return self.align_pairs_indexed(pool_seqs, qidx, tidx, sigma_hint)
+        return self.align_pairs_indexed(pool_seqs, qidx, tidx, sigma_hint, as_runs)
 
-    def align_pairs_indexed(self, pool_seqs, qidx, tidx, sigma_hint=None):
+    def align_pairs_indexed(self, pool_seqs, qidx, tidx, sigma_hint=None,
+                            as_runs: bool = False):
         """align_pairs with the pairs as row indices into pool_seqs."""
         from .dense_engine import _next_pow2
 
@@ -802,13 +806,14 @@ class SegmentedDenseAligner:
                 idxs = sorted(idxs, key=lambda i: int(sums[i]))
             for lo in range(0, len(idxs), bsz):
                 group = idxs[lo : lo + bsz]
-                escalate = self._run_group(pool, group, results, k, l_pad, C, cap, full_cap)
+                escalate = self._run_group(pool, group, results, k, l_pad, C, cap, full_cap,
+                                           as_runs)
                 counters.add(reruns=len(escalate))
                 for i, key in escalate:
                     rounds.setdefault(key, []).append(i)
         return results
 
-    def _run_group(self, pool, group, results, k, l_pad, C, run_cap, full_cap):
+    def _run_group(self, pool, group, results, k, l_pad, C, run_cap, full_cap, as_runs):
         """Sweep, escalate, replay and walk one group at band k; fills
         results and returns [(pair index, (next k, next run_cap))]."""
         pool_dev, qidx, tidx, ql_all, tl_all = pool
@@ -903,6 +908,10 @@ class SegmentedDenseAligner:
                     else:
                         results[i] = None
                     continue
-                cigar = expand_runs_to_cigar(ops[j], lens[j].astype(np.int64), int(nrun[j]))
+                n_j = int(nrun[j])
+                cigar = (
+                    walk_runs(ops[j], lens[j], n_j) if as_runs
+                    else expand_runs_to_cigar(ops[j], lens[j], n_j)
+                )
                 results[i] = (int(scores[j]), cigar)
         return escalate

@@ -61,6 +61,7 @@ from .batch import (
     _shift_left,
     _shift_right,
     expand_runs_to_cigar,
+    walk_runs,
 )
 from .dense import LaunchCount
 from .params import Penalties
@@ -977,14 +978,19 @@ class WavefrontSegmentedAligner:
         want = max(512, 4 * smax + 64)
         return 1 << (want - 1).bit_length()
 
-    def align_pairs(self, pairs: List[Tuple[bytes, bytes]], sigma_hint=None):
+    def align_pairs(self, pairs: List[Tuple[bytes, bytes]], sigma_hint=None,
+                    as_runs: bool = False):
         from .dense_engine import _pool_pairs
 
         pool_seqs, qidx, tidx = _pool_pairs(pairs)
-        return self.align_pairs_indexed(pool_seqs, qidx, tidx, sigma_hint)
+        return self.align_pairs_indexed(pool_seqs, qidx, tidx, sigma_hint, as_runs)
 
-    def align_pairs_indexed(self, pool_seqs, qidx, tidx, sigma_hint=None):
-        """align_pairs with the pairs as row indices into pool_seqs."""
+    def align_pairs_indexed(self, pool_seqs, qidx, tidx, sigma_hint=None,
+                            as_runs: bool = False):
+        """align_pairs with the pairs as row indices into pool_seqs.
+        as_runs=True: each certified pair's cigar comes back as (ops,
+        lens) run pairs in start->end order instead of a per-base byte
+        array."""
         from .dense_engine import _next_pow2
 
         n = len(qidx)
@@ -1048,7 +1054,7 @@ class WavefrontSegmentedAligner:
                 idxs = sorted(idxs, key=lambda i: int(ql[i] + tl[i]))
             for lo in range(0, len(idxs), bsz):
                 group = idxs[lo : lo + bsz]
-                escalate = self._run_group(pool, group, results, k, s_cap, k_sub)
+                escalate = self._run_group(pool, group, results, k, s_cap, k_sub, as_runs)
                 # escalated pairs run again here, handed-back ones on the
                 # segmented engine
                 counters.add(reruns=len(escalate))
@@ -1060,7 +1066,7 @@ class WavefrontSegmentedAligner:
         wf_stats.fallbacks += sum(r is self.DENSE_FALLBACK for r in results)
         return results
 
-    def _run_group(self, pool, group, results, k, s_cap, k_sub):
+    def _run_group(self, pool, group, results, k, s_cap, k_sub, as_runs):
         """Sweep, certify, replay and walk one group at band k (reference:
         _run_group_pallas); fills results and returns
         [(pair index, (next k, next s_cap) | None)], None meaning
@@ -1155,6 +1161,10 @@ class WavefrontSegmentedAligner:
                 if overflow[j]:
                     escalate.append((i, None))
                     continue
-                cigar = expand_runs_to_cigar(ops[j], lens[j].astype(np.int64), int(nrun[j]))
+                n_j = int(nrun[j])
+                cigar = (
+                    walk_runs(ops[j], lens[j], n_j) if as_runs
+                    else expand_runs_to_cigar(ops[j], lens[j], n_j)
+                )
                 results[i] = (int(scores_h[j]), cigar)
         return escalate

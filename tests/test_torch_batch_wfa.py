@@ -186,6 +186,35 @@ def test_expand_runs_batch_matches_reference():
                                       RB.expand_runs_to_cigar(ops[j], lens[j], int(nruns[j])))
 
 
+@pytest.mark.parametrize("seed", range(6))
+def test_runs_stats_match_per_base_stats(seed):
+    """runs_stats of run pairs equals batch_cigar_stats of their
+    expansions, over zero-length runs, one op split over adjacent runs
+    (a 300-base match as 255 + 45), an empty cigar, a failed (None) row
+    and the walk's reversed views of uint8 and int32 run buffers."""
+    from allwave_tpu_torch.core.cigar import batch_cigar_stats
+
+    rng = np.random.RandomState(seed)
+    runs = [
+        (np.frombuffer(b"MMXMI", np.uint8), np.array([255, 45, 0, 3, 2], np.uint8)),
+        (np.zeros(0, np.uint8), np.zeros(0, np.uint8)),
+        None,
+    ]
+    for _ in range(rng.randint(3, 9)):
+        cap = rng.randint(1, 400)
+        dtype, top = ((np.uint8, 256), (np.int32, 5000))[rng.randint(2)]
+        ops = rng.choice(np.frombuffer(b"MXID", np.uint8), cap)
+        lens = rng.randint(0, top, cap).astype(dtype)
+        runs.append(TB.walk_runs(ops, lens, rng.randint(0, cap + 1)))
+    runs = [runs[i] for i in rng.permutation(len(runs))]
+    per_base = [
+        np.zeros(0, np.uint8) if r is None else np.repeat(r[0], r[1].astype(np.int64))
+        for r in runs
+    ]
+    np.testing.assert_array_equal(TB.runs_stats(runs), batch_cigar_stats(per_base))
+    assert TB.runs_stats([]).shape == (0, 4)
+
+
 def test_sharded_alignment_step_matches_one_device():
     """Three CPU devices (a batch of 9, padded to 12) give the single
     device's outputs, and those are the reference's forward + walk."""

@@ -732,6 +732,36 @@ def test_wavefront_route_launches_kernels_and_matches_cpu(cuda_device, monkeypat
 
 
 @pytest.mark.cuda
+def test_wavefront_engine_runs_expand_to_its_cigars(cuda_device):
+    """The wavefront engine on the card, on 20-40 kb pairs: with
+    as_runs=True each pair's start-to-end runs expand to the per-base
+    cigar it gives under as_runs=False, and their stats are that
+    cigar's."""
+    from allwave_tpu_torch.core.cigar import batch_cigar_stats
+    from allwave_tpu_torch.testing.batches import mutate
+    from allwave_tpu_torch.wfa import wf_segmented as TW
+    from allwave_tpu_torch.wfa.batch import runs_stats
+
+    pen = resolve_penalties(parse_scores("0,5,8,2,24,1"))
+    rng = np.random.RandomState(24)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    pairs, hint = [], []
+    for L, div in ((20000, 0.002), (30000, 0.005), (40000, 0.003), (35000, 0.0)):
+        q = rng.choice(bases, L)
+        pairs.append((q.tobytes(), mutate(rng, q, div, 3).tobytes()))
+        hint.append(int(6 * div * L) + 64)
+    eng = TW.WavefrontSegmentedAligner(pen, device=cuda_device)
+    runs = eng.align_pairs(pairs, sigma_hint=hint, as_runs=True)
+    per_base = eng.align_pairs(pairs, sigma_hint=hint)
+    assert all(isinstance(r, tuple) and isinstance(r[1], tuple) for r in runs)
+    expanded = [np.repeat(ops, lens.astype(np.int64)) for _, (ops, lens) in runs]
+    assert [(s, c.tobytes()) for (s, _), c in zip(runs, expanded)] == [
+        (s, np.asarray(c, np.uint8).tobytes()) for s, c in per_base
+    ]
+    np.testing.assert_array_equal(runs_stats([r[1] for r in runs]), batch_cigar_stats(expanded))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("probe", ["kexp", "kexp2", "kexp3", "kexp6", "kexp7", "kexp8"])
 def test_probe_kernel_matches_plain(cuda_device, probe):
     """Each probe kernel of allwave_tpu_torch/probes against its plain

@@ -456,10 +456,10 @@ def groups(monkeypatch):
     seen = []
     orig = TS.SegmentedDenseAligner._run_group
 
-    def spy(self, pool, group, results, k, l_pad, C, run_cap, full_cap):
+    def spy(self, pool, group, results, k, l_pad, C, run_cap, full_cap, *rest):
         k_sub = min(k, -(-(2 * C + 320) // 128) * 128)
         seen.append((k, run_cap, len(group), k > k_sub))
-        return orig(self, pool, group, results, k, l_pad, C, run_cap, full_cap)
+        return orig(self, pool, group, results, k, l_pad, C, run_cap, full_cap, *rest)
 
     monkeypatch.setattr(TS.SegmentedDenseAligner, "_run_group", spy)
     return seen
@@ -607,7 +607,10 @@ def test_c2_span_engine_matches_port(scores_str, monkeypatch):
 def test_unified_long_route_matches_reference(as_runs):
     """UnifiedAligner with dense_max_len lowered: the long pairs take the
     segmented engine in both packages; short ones the dense engine.
-    Long results are per-base arrays even with as_runs."""
+    Every result, long or short, is runs under as_runs=True and a
+    per-base array under False; with runs no per-base array is built."""
+    from allwave_tpu_torch.utils.telemetry import counters
+
     pen = _pen("0,5,8,2,24,1")
     pairs = _pairs(71, 2, 150, 0.04) + _pairs(72, 2, 60, 0.04)
     cfg = dict(ckpt_every=64)
@@ -617,7 +620,9 @@ def test_unified_long_route_matches_reference(as_runs):
                           segmented_config=TS.SegmentedConfig(**cfg))
     hint = [60, 60, 20, 20]
     rj, sj = j.align_pairs(pairs, with_stats=True, sigma_hint=hint, as_runs=as_runs)
+    counters.reset()
     rt, st = t.align_pairs(pairs, with_stats=True, sigma_hint=hint, as_runs=as_runs)
+    expansions = counters.snapshot()["expansions"]
 
     def norm(rs):
         out = []
@@ -629,7 +634,8 @@ def test_unified_long_route_matches_reference(as_runs):
 
     assert norm(rt) == norm(rj)
     np.testing.assert_array_equal(st, sj)
-    assert not isinstance(rt[0][1], tuple) and isinstance(rt[2][1], tuple) == as_runs
+    assert [isinstance(c, tuple) for _, c in rt] == [as_runs] * len(rt)
+    assert expansions == 0 if as_runs else expansions >= len(rt)
 
 
 def test_all_pair_aligner_long_route_matches_reference(monkeypatch, tmp_path):
@@ -663,6 +669,54 @@ def test_all_pair_aligner_long_route_matches_reference(monkeypatch, tmp_path):
     monkeypatch.setenv("ALLWAVE_PLATFORM", "cpu")
     port = collect(T)
     assert len(port) == 12 and port == collect(R)
+
+
+def test_cli_long_route_hands_runs_to_the_writer(monkeypatch, tmp_path):
+    """The CLI with the long-pair threshold lowered in both packages:
+    every long pair reaches the pipeline's emit step as runs, no
+    per-base cigar array is built, and the PAF lines equal the
+    reference's."""
+    import allwave_tpu as R
+    from allwave_tpu.testing.synth import MutationConfig, make_test_case
+    from allwave_tpu_torch import cli
+    from allwave_tpu_torch.engine.pipeline import AllPairAligner
+    from allwave_tpu_torch.utils.telemetry import counters
+
+    for mod, seg in ((JE, JS), (TE, TS)):
+        init = mod.UnifiedAligner.__init__
+
+        def low(self, pen, *a, _init=init, _seg=seg, **kw):
+            kw["dense_max_len"] = 200
+            kw["segmented_config"] = _seg.SegmentedConfig(ckpt_every=128)
+            _init(self, pen, *a, **kw)
+
+        monkeypatch.setattr(mod.UnifiedAligner, "__init__", low)
+    fasta = tmp_path / "long.fa"
+    make_test_case(83, 4, 300, MutationConfig(0.03, 0.003, 0.003)).write_fasta(str(fasta))
+
+    emit = AllPairAligner.__dict__["_emit_chunk"].__func__
+    kinds = []
+
+    def spy(callback, chunk, revs, aligned, stats):
+        kinds.extend(type(r[1]) for r in aligned if r is not None)
+        emit(callback, chunk, revs, aligned, stats)
+
+    monkeypatch.setattr(AllPairAligner, "_emit_chunk", staticmethod(spy))
+    monkeypatch.setenv("ALLWAVE_PLATFORM", "cpu")
+    paf = tmp_path / "port.paf"
+    counters.reset()
+    rc = cli.main(["-i", str(fasta), "-o", str(paf), "-s", "0,5,8,2,24,1", "-p", "none",
+                   "--no-progress"])
+    assert rc == 0 and counters.snapshot()["expansions"] == 0
+    assert kinds == [tuple] * 12
+
+    seqs = R.read_fasta(str(fasta))
+    ref = []
+    R.process_alignments_with_callback(
+        seqs, R.parse_scores("0,5,8,2,24,1"), R.NoSparsification(),
+        lambda r: ref.append(R.alignment_to_paf(r, seqs)),
+    )
+    assert sorted(paf.read_text().splitlines()) == sorted(ref)
 
 
 # ---------------------------------------------------------------------------
