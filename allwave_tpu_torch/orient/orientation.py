@@ -12,6 +12,11 @@ Two methods, matching the reference:
 The reference re-sketches the target for every pair; we precompute one
 stranded sketch per sequence and one per revcomp'd sequence (identical
 results, O(n) instead of O(pairs) sketching).
+
+Each route of `orient_batch` and `distance_batch` first builds every
+stranded set it reads in one `orient.sketch` span (counted in the
+`sketches` counter), then runs its decisions and distance hints in one
+`orient.decide` span (utils.telemetry).
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from ..sketch.membership import (
     orient_routes,
 )
 from ..sketch.minhash import jaccard, sketch_stranded
+from ..utils.telemetry import counters
 
 ORIENTATION_KMER_SIZE = 15  # reference: alignment.rs:70
 ORIENTATION_SKETCH_SIZE = 1000  # reference: alignment.rs:75
@@ -111,6 +117,29 @@ class OrientationIndex:
 
             with ThreadPoolExecutor(min(self.threads, len(missing))) as ex:
                 list(ex.map(build, missing))
+
+    def _route(self, q_idx=None, t_idx=None):
+        """The `orient.decide` span for a route over these query and
+        target rows (every row where None), opened once every stranded
+        set the route reads is built, in one `orient.sketch` span: the
+        forward sets of all the rows and the reverse sets of the queries
+        (of all the rows with threads > 1, as `_ensure_sets` builds
+        them)."""
+        every = np.arange(len(self.sequences), dtype=np.int64)
+        q = every if q_idx is None else np.unique(np.asarray(q_idx, dtype=np.int64))
+        rows = every if t_idx is None else np.union1d(q, np.asarray(t_idx, dtype=np.int64))
+        fwd = [i for i in rows.tolist() if self._fwd_sets[i] is None]
+        rev = [i for i in (rows if self.threads > 1 else q).tolist() if self._rev_sets[i] is None]
+        if fwd or rev:
+            with counters.span("orient.sketch"):
+                if self.threads > 1:
+                    self._ensure_sets(rows)
+                for i in fwd:
+                    self._fwd_set(i)
+                for i in rev:
+                    self._rev_set(i)
+            counters.add(sketches=len(fwd) + len(rev))
+        return counters.span("orient.decide")
 
     def orient(self, query_idx: int, target_idx: int) -> bool:
         """True iff the query should be reverse-complemented
@@ -387,12 +416,14 @@ class OrientationIndex:
             # requested — e.g. the streaming pipeline's per-chunk
             # orientation at large n (2 s -> ~30 ms per 2k-pair chunk)
             if idx.shape[0] * 8 < q_idx.size * t_idx.size:
-                res = self._orient_pairs_native(idx)
+                with self._route(q_idx, t_idx):
+                    res = self._orient_pairs_native(idx)
                 if res is not None:
                     return res[0]
             if q_idx.size * t_idx.size * 4 < n * n:
                 orient_routes.took("submatrix")
-                dec, dist = self._decision_submatrix(q_idx, t_idx)
+                with self._route(q_idx, t_idx):
+                    dec, dist = self._decision_submatrix(q_idx, t_idx)
                 self._sub = (q_idx, t_idx, dec, dist)
                 return self._sub_lookup(idx)[0]
             # the device path pays a fixed launch and transfer cost (and
@@ -402,22 +433,27 @@ class OrientationIndex:
             use_device = self.device.type == "cuda" and n >= ORIENT_DEVICE_MIN_N
             if use_device:
                 try:
-                    self._decisions = self._decision_matrix_device(self.device)
+                    with self._route():
+                        self._decisions = self._decision_matrix_device(self.device)
                 except OverBudget:
                     # membership matrix over the device budget (U ~ 2e7
                     # hashes at n=10k). The request is usually sparse
                     # there — serve it per-pair natively before
                     # resorting to the O(n^2) NumPy matrix.
-                    res = self._orient_pairs_native(idx)
+                    with self._route(q_idx, t_idx):
+                        res = self._orient_pairs_native(idx)
                     if res is not None:
                         return res[0]
-                    self._decisions = self._decision_matrix()
+                    with self._route():
+                        self._decisions = self._decision_matrix()
             else:
                 if n >= 2048 and idx.shape[0] * 16 < n * n:
-                    res = self._orient_pairs_native(idx)
+                    with self._route(q_idx, t_idx):
+                        res = self._orient_pairs_native(idx)
                     if res is not None:
                         return res[0]
-                self._decisions = self._decision_matrix()
+                with self._route():
+                    self._decisions = self._decision_matrix()
         return self._decisions[idx[:, 0], idx[:, 1]]
 
     def distance_batch(self, idx_pairs) -> np.ndarray:
@@ -440,19 +476,23 @@ class OrientationIndex:
             q_idx = np.unique(idx[:, 0])
             t_idx = np.unique(idx[:, 1])
             if idx.shape[0] * 8 < q_idx.size * t_idx.size:
-                res = self._orient_pairs_native(idx)
+                with self._route(q_idx, t_idx):
+                    res = self._orient_pairs_native(idx)
                 if res is not None:
                     return res[1]
             if q_idx.size * t_idx.size * 4 < n * n:
                 orient_routes.took("submatrix")
-                dec, dist = self._decision_submatrix(q_idx, t_idx)
+                with self._route(q_idx, t_idx):
+                    dec, dist = self._decision_submatrix(q_idx, t_idx)
                 self._sub = (q_idx, t_idx, dec, dist)
                 return self._sub_lookup(idx)[1]
             if n >= 2048 and idx.shape[0] * 16 < n * n:
-                res = self._orient_pairs_native(idx)
+                with self._route(q_idx, t_idx):
+                    res = self._orient_pairs_native(idx)
                 if res is not None:
                     return res[1]
-            self._decisions = self._decision_matrix()
+            with self._route():
+                self._decisions = self._decision_matrix()
         return self._distances[idx[:, 0], idx[:, 1]]
 
 

@@ -12,7 +12,9 @@ Counters, added where the work happens:
   engine);
 * `expansions`: pairs whose per-base CIGAR byte array the port builds
   from its runs (a caller that asks for runs, as the pipeline does,
-  builds none).
+  builds none);
+* `sketches`: stranded MinHash sets orientation builds (a sequence's
+  forward set and its reverse complement's are two).
 
 Spans (`counters.span(name)`) time the host's phases by name: count,
 wall seconds (`perf_counter_ns`) and the thread's CPU seconds
@@ -116,6 +118,7 @@ class EngineCounters:
         self.syncs = 0
         self.reruns = 0
         self.expansions = 0
+        self.sketches = 0
         self._spans: Dict[str, List[int]] = {}
         self._log: List[SpanRecord] = []
         self._offset_ns: Optional[int] = None
@@ -126,13 +129,14 @@ class EngineCounters:
         self.chunk: Optional[int] = None
 
     def add(self, cells: int = 0, dispatches: int = 0, syncs: int = 0, reruns: int = 0,
-            expansions: int = 0) -> None:
+            expansions: int = 0, sketches: int = 0) -> None:
         with self._lock:
             self.cells += cells
             self.dispatches += dispatches
             self.syncs += syncs
             self.reruns += reruns
             self.expansions += expansions
+            self.sketches += sketches
 
     def span(self, name: str) -> _Span:
         """`with counters.span(name): ...` times the block."""
@@ -158,6 +162,7 @@ class EngineCounters:
                 "syncs": self.syncs,
                 "reruns": self.reruns,
                 "expansions": self.expansions,
+                "sketches": self.sketches,
                 "spans": {
                     name: {"count": n, "wall_s": wall / 1e9, "cpu_s": cpu / 1e9}
                     for name, (n, wall, cpu) in self._spans.items()
@@ -171,6 +176,7 @@ class EngineCounters:
             self.syncs = 0
             self.reruns = 0
             self.expansions = 0
+            self.sketches = 0
             self._spans.clear()
             self._log.clear()
             self._offset_ns = _clock_offset()

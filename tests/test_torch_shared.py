@@ -61,18 +61,22 @@ def test_native_resolves_to_repo_csrc():
     assert port._CSRC == ref._CSRC == os.path.join(REPO, "csrc")
 
 
-def _port_only_lines(src: str, device_defs) -> set:
-    """Line numbers of the port's device code in a copy of a reference
+def _port_only_lines(src: str, device_defs):
+    """Line numbers of the port's own code in a copy of a reference
     module: the module docstring; imports of torch and of the port's
-    `device` and `membership` modules; the functions named in
+    `device`, `membership` and `telemetry` modules; the functions named in
     `device_defs`; the gate (the assignments to `device` and `use_device`,
     and of the `if use_device:` statement its header and its body, not
     its `else` branch, which is the reference's host routing); route
-    counts (`*_routes.took(...)`); and the `device` argument and
-    `self.device` attribute. A run of comment lines directly above one
-    of these belongs to it."""
+    counts (`*_routes.took(...)`); the `device` argument and
+    `self.device` attribute; and the header of each `with` over the
+    port's spans (`counters.span(...)`, `self._route(...)`). A run of
+    comment lines directly above one of these belongs to it. Also, by
+    line number, the indentation such a `with` adds to its body, which
+    is the reference's code."""
     tree = ast.parse(src)
     spans = []
+    dedent = {}
     body = tree.body
     if body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant):
         spans.append((body[0].lineno, body[0].end_lineno))
@@ -80,7 +84,7 @@ def _port_only_lines(src: str, device_defs) -> set:
         if isinstance(node, ast.Import) and [a.name for a in node.names] == ["torch"]:
             spans.append((node.lineno, node.end_lineno))
         elif isinstance(node, ast.ImportFrom) and (node.module or "").split(".")[-1] in (
-            "device", "membership"
+            "device", "membership", "telemetry"
         ):
             spans.append((node.lineno, node.end_lineno))
         elif isinstance(node, ast.FunctionDef) and node.name in device_defs:
@@ -106,13 +110,22 @@ def _port_only_lines(src: str, device_defs) -> set:
             spans.append((node.lineno, node.end_lineno))
         elif isinstance(node, ast.arg) and node.arg == "device":
             spans.append((node.lineno, node.end_lineno))
+        elif isinstance(node, ast.With) and all(
+            isinstance(it.context_expr, ast.Call)
+            and isinstance(it.context_expr.func, ast.Attribute)
+            and it.context_expr.func.attr in ("span", "_route")
+            for it in node.items
+        ):
+            spans.append((node.lineno, node.body[0].lineno - 1))
+            for no in range(node.body[0].lineno, node.end_lineno + 1):
+                dedent[no] = dedent.get(no, 0) + node.body[0].col_offset - node.col_offset
     lines = src.splitlines()
     out = set()
     for first, last in spans:
         while first > 1 and lines[first - 2].strip().startswith("#"):
             first -= 1
         out.update(range(first, last + 1))
-    return out
+    return out, dedent
 
 
 def _assert_reference_minus_device_code(rel: str, device_defs) -> str:
@@ -120,14 +133,16 @@ def _assert_reference_minus_device_code(rel: str, device_defs) -> str:
         ref_lines = set(f.read().splitlines())
     with open(os.path.join(REPO, "allwave_tpu_torch", rel)) as f:
         port_src = f.read()
-    skip = _port_only_lines(port_src, device_defs)
+    skip, dedent = _port_only_lines(port_src, device_defs)
     for name in device_defs:
         assert f"def {name}(" in port_src, name
-    host = [
-        (no, line)
-        for no, line in enumerate(port_src.splitlines(), 1)
-        if no not in skip
-    ]
+    host = []
+    for no, line in enumerate(port_src.splitlines(), 1):
+        if no in skip:
+            continue
+        w = dedent.get(no, 0)
+        assert not line[:w].strip(), (no, line)
+        host.append((no, line[w:]))
     stray = [(no, line) for no, line in host if line not in ref_lines]
     assert not stray, f"allwave_tpu_torch/{rel}: lines not in the reference: {stray}"
     assert "jax" not in port_src.split('"""', 2)[2]
@@ -160,8 +175,10 @@ def test_minhash_is_the_reference_minus_device_code():
 def test_orientation_is_the_reference_minus_device_code():
     """orient/orientation.py: every line of the port's copy outside its
     torch device code (`_decision_matrix_device`, `_decide_device`, the
-    gate in `orient_batch`, the route counts and the index's device)
-    appears in the reference, and the host paths agree."""
+    gate in `orient_batch`, the route counts and the index's device) and
+    its spans (`_route` and the `with` headers that open them, their
+    bodies read at the reference's indentation) appears in the
+    reference, and the host paths agree."""
     import numpy as np
 
     from allwave_tpu.core.types import Sequence as RSeq
@@ -170,7 +187,7 @@ def test_orientation_is_the_reference_minus_device_code():
     from allwave_tpu_torch.orient.orientation import OrientationIndex as TIdx
 
     _assert_reference_minus_device_code(
-        "orient/orientation.py", ("_decision_matrix_device", "_decide_device")
+        "orient/orientation.py", ("_decision_matrix_device", "_decide_device", "_route")
     )
 
     rng = np.random.RandomState(4)

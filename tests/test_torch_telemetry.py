@@ -1,6 +1,7 @@
 """The port's recorder (`allwave_tpu_torch/utils/telemetry.py`): span
 totals, parents and the span log on the profiler's clock; the engines'
-spans and counts on a CPU run; the CLI's end-of-run stats line."""
+spans and counts on a CPU run; orientation's spans and sketch count on
+each route; the CLI's end-of-run stats line."""
 
 import functools
 import io
@@ -19,6 +20,8 @@ from allwave_tpu_torch.core.scores import parse_scores
 from allwave_tpu_torch.core.types import Sequence
 from allwave_tpu_torch.engine import pipeline
 from allwave_tpu_torch.engine.pipeline import AllPairAligner
+from allwave_tpu_torch.orient import orientation
+from allwave_tpu_torch.sketch import membership
 from allwave_tpu_torch.utils.telemetry import EngineCounters, counters, to_host
 from allwave_tpu_torch.wfa.dense_engine import DenseBandAligner, DenseConfig, UnifiedAligner
 from allwave_tpu_torch.wfa.params import resolve_penalties
@@ -190,6 +193,83 @@ def test_to_host_and_reruns_are_counted():
     # one copy a group: the first round's and the rerun round's; the
     # copy thread's start and join are waits with no copy of their own
     assert snap["syncs"] == 2 and snap["spans"]["engine.wait"]["count"] == 2 + 2 * 2
+
+
+def _orient_set(n):
+    """n 400 bp sequences from one ancestor at 2%, every other one
+    reverse complemented."""
+    rng = np.random.RandomState(5)
+    base = _seq(rng, 400)
+    out = []
+    for i in range(n):
+        s = _mutate(rng, base, 0.02)
+        out.append(Sequence(f"s{i}", orientation.reverse_complement(s) if i % 2 else s))
+    return out
+
+
+#: route -> (sequences, the run's pairs; None: every pair)
+ORIENT_ROUTES = {
+    "numpy": (8, None),
+    "submatrix": (8, [(0, 2), (0, 3), (1, 2), (1, 3)]),
+    "native": (12, [(i, (i + 1) % 12) for i in range(10)]),
+}
+
+
+def _orient_all(n, pairs, threads, device):
+    """`_orient_all` of an aligner over `_orient_set(n)`, inside a span
+    of the test's own named `orient` (the benchmark's span around the
+    same call) and under a CPU profiler, so that the spans are logged
+    with their parents."""
+    al = AllPairAligner(_orient_set(n), parse_scores("0,5,8,2,24,1"), use_mash_orientation=True,
+                        threads=threads, device=device)
+    if pairs is not None:
+        al.pairs = np.array(pairs, dtype=al.pairs.dtype)
+    counters.reset()
+    membership.orient_routes.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        with counters.span("orient"):
+            al._orient_all()
+    return al, counters.snapshot(), counters.span_log()
+
+
+def _assert_orient_spans(al, snap, log):
+    spans = snap["spans"]
+    inner = [r for r in log if r.name.startswith("orient.")]
+    assert sorted(r.name for r in inner) == ["orient.decide", "orient.sketch"]
+    assert all(r.parent == "orient" for r in inner)
+    assert spans["orient.sketch"]["wall_s"] + spans["orient.decide"]["wall_s"] <= (
+        spans["orient"]["wall_s"])
+    idx = al._orient
+    built = sum(s is not None for s in idx._fwd_sets + idx._rev_sets)
+    assert snap["sketches"] == built > 0
+
+
+@pytest.mark.parametrize("threads", [1, 2])
+@pytest.mark.parametrize("route", sorted(ORIENT_ROUTES))
+def test_orientation_spans_and_sketches_on_each_host_route(route, threads):
+    """Each host route builds its sets in one `orient.sketch` span and
+    decides in one `orient.decide` span, both inside `_orient_all`; the
+    `sketches` counter is the stranded sets the index holds after it
+    (forward sets of every row and reverse sets of the queries, or both
+    strands of every row with threads > 1)."""
+    n, pairs = ORIENT_ROUTES[route]
+    al, snap, log = _orient_all(n, pairs, threads, "cpu")
+    assert membership.orient_routes.counts == {route: 1}
+    _assert_orient_spans(al, snap, log)
+    rows = np.unique(al.pairs)
+    queries = np.unique(al.pairs[:, 0])
+    assert snap["sketches"] == rows.size + (rows.size if threads > 1 else queries.size)
+
+
+@pytest.mark.cuda
+def test_orientation_spans_and_sketches_on_the_device_route(monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the device route's gate opens only on one")
+    monkeypatch.setattr(orientation, "ORIENT_DEVICE_MIN_N", 8)
+    al, snap, log = _orient_all(8, None, 1, "cuda")
+    assert membership.orient_routes.counts == {"device": 1}
+    _assert_orient_spans(al, snap, log)
+    assert snap["sketches"] == 16
 
 
 @pytest.mark.parametrize("progress", [True, False])
