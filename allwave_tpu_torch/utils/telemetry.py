@@ -14,7 +14,10 @@ Counters, added where the work happens:
   from its runs (a caller that asks for runs, as the pipeline does,
   builds none);
 * `sketches`: stranded MinHash sets orientation builds (a sequence's
-  forward set and its reverse complement's are two).
+  forward set and its reverse complement's are two);
+* `paf_batches`: the CLI writer's batch passes over its queued records'
+  CIGAR text (`engine/paf_text.py`), one each;
+* `paf_batched`: the records whose CIGAR text a batch pass made.
 
 Spans (`counters.span(name)`) time the host's phases by name: count,
 wall seconds (`perf_counter_ns`) and the thread's CPU seconds
@@ -119,6 +122,8 @@ class EngineCounters:
         self.reruns = 0
         self.expansions = 0
         self.sketches = 0
+        self.paf_batches = 0
+        self.paf_batched = 0
         self._spans: Dict[str, List[int]] = {}
         self._log: List[SpanRecord] = []
         self._offset_ns: Optional[int] = None
@@ -129,7 +134,8 @@ class EngineCounters:
         self.chunk: Optional[int] = None
 
     def add(self, cells: int = 0, dispatches: int = 0, syncs: int = 0, reruns: int = 0,
-            expansions: int = 0, sketches: int = 0) -> None:
+            expansions: int = 0, sketches: int = 0, paf_batches: int = 0,
+            paf_batched: int = 0) -> None:
         with self._lock:
             self.cells += cells
             self.dispatches += dispatches
@@ -137,6 +143,8 @@ class EngineCounters:
             self.reruns += reruns
             self.expansions += expansions
             self.sketches += sketches
+            self.paf_batches += paf_batches
+            self.paf_batched += paf_batched
 
     def span(self, name: str) -> _Span:
         """`with counters.span(name): ...` times the block."""
@@ -163,6 +171,8 @@ class EngineCounters:
                 "reruns": self.reruns,
                 "expansions": self.expansions,
                 "sketches": self.sketches,
+                "paf_batches": self.paf_batches,
+                "paf_batched": self.paf_batched,
                 "spans": {
                     name: {"count": n, "wall_s": wall / 1e9, "cpu_s": cpu / 1e9}
                     for name, (n, wall, cpu) in self._spans.items()
@@ -177,6 +187,8 @@ class EngineCounters:
             self.reruns = 0
             self.expansions = 0
             self.sketches = 0
+            self.paf_batches = 0
+            self.paf_batched = 0
             self._spans.clear()
             self._log.clear()
             self._offset_ns = _clock_offset()

@@ -99,6 +99,32 @@ def test_span_totals_parents_and_reset_over_two_threads():
     assert (snap["cells"], snap["dispatches"], snap["syncs"], snap["reruns"]) == (0, 0, 0, 0)
 
 
+def test_paf_batch_counters_count_and_reset():
+    """`paf_batches` counts the writer's batch passes, `paf_batched` the
+    records they formatted; both go back to 0 with the rest."""
+    c = EngineCounters()
+    c.add(paf_batches=1, paf_batched=512)
+    c.add(paf_batches=1, paf_batched=7)
+    snap = c.snapshot()
+    assert (snap["paf_batches"], snap["paf_batched"]) == (2, 519)
+    c.reset()
+    snap = c.snapshot()
+    assert (snap["paf_batches"], snap["paf_batched"]) == (0, 0)
+    # the global counters, through the batch pass itself
+    from allwave_tpu_torch.core.types import AlignmentResult
+    from allwave_tpu_torch.engine.paf_text import cigar_texts
+
+    counters.reset()
+    runs = (np.array([77, 88], np.uint8), np.array([255, 1], np.uint8))
+    cigar_texts([AlignmentResult(0, 1, 0, 256, 0, 256, False, cigar_runs=runs)] * 3)
+    cigar_texts([AlignmentResult.failed(0, 1, False)])
+    snap = counters.snapshot()
+    assert (snap["paf_batches"], snap["paf_batched"]) == (2, 4)
+    counters.reset()
+    snap = counters.snapshot()
+    assert (snap["paf_batches"], snap["paf_batched"]) == (0, 0)
+
+
 def test_log_only_under_a_profiler():
     c = EngineCounters()
     with c.span("engine.plan"):
