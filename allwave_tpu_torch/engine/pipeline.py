@@ -16,11 +16,8 @@ from __future__ import annotations
 
 from typing import Callable, List, Optional, Sequence as PySequence
 
-import os
-
 import numpy as np
 
-from ..core.cigar import count_cigar_operations, parse_cigar_lengths
 from ..core.types import (
     AlignmentParams,
     AlignmentResult,
@@ -31,7 +28,6 @@ from ..orient.orientation import OrientationIndex
 from ..sparsify.pairs import build_pairs
 from ..device import resolve_device
 from ..utils.telemetry import counters
-from ..wfa.batch import expand_runs
 from ..wfa.dense_engine import DenseConfig, UnifiedAligner
 from ..wfa.engine import EngineConfig
 from ..wfa.params import resolve_penalties
@@ -39,46 +35,33 @@ from ..wfa.params import resolve_penalties
 #: pairs per streaming chunk. One chunk = one launch group at the
 #: engine's max batch, so the chunk-level pipeline (orient/launch
 #: chunk i+1 while chunk i copies back/unpacks/emits) overlaps host and
-#: device work. ALLWAVE_CHUNK overrides.
-DEFAULT_CHUNK = int(os.environ.get("ALLWAVE_CHUNK", "4096"))
+#: device work.
+DEFAULT_CHUNK = 4096
 
 
-def _result_from_cigar(
-    i: int,
-    j: int,
-    is_rev: bool,
-    score: int,
-    cigar,
-    stats=None,
-) -> AlignmentResult:
-    """cigar: per-base uint8 array OR an (ops, lens) runs tuple — runs
-    pass through to the result unexpanded (the PAF serializer consumes
-    runs directly)."""
-    is_runs = isinstance(cigar, tuple)
-    if stats is not None:
-        num_matches, alignment_length, query_end, target_end = stats
-    else:
-        arr = cigar if not is_runs else None
-        if arr is None:
-            arr = expand_runs(*cigar)
-            cigar = arr
-            is_runs = False
-        num_matches, alignment_length = count_cigar_operations(arr)
-        query_end, target_end = parse_cigar_lengths(arr)
-    return AlignmentResult(
-        query_idx=i,
-        target_idx=j,
-        query_start=0,
-        query_end=query_end,
-        target_start=0,
-        target_end=target_end,
-        is_reverse=is_rev,
-        cigar_bytes=None if is_runs else cigar,
-        score=score,
-        num_matches=num_matches,
-        alignment_length=alignment_length,
-        cigar_runs=cigar if is_runs else None,
-    )
+def _results(chunk, revs, aligned, stats):
+    """The chunk's AlignmentResults in pair order, from the engine's
+    (score, runs) results and (n, 4) stats: failed pairs as
+    `AlignmentResult.failed`, the rest built by __new__ and slot stores
+    (no __init__ call a record, one C-level conversion a chunk), their
+    runs passed through unexpanded (the PAF writer consumes runs)."""
+    AR = AlignmentResult
+    new = AR.__new__
+    for (i, j), is_rev, res, st in zip(chunk.tolist(), revs.tolist(), aligned, stats.tolist()):
+        if res is None:
+            yield AR.failed(i, j, is_rev)
+            continue
+        r = new(AR)
+        r.query_idx = i
+        r.target_idx = j
+        r.query_start = 0
+        r.target_start = 0
+        r.is_reverse = is_rev
+        r.score = res[0]
+        r.num_matches, r.alignment_length, r.query_end, r.target_end = st
+        r._cigar_bytes = None
+        r._cigar_runs = res[1]
+        yield r
 
 
 class AllPairAligner:
@@ -122,6 +105,12 @@ class AllPairAligner:
             sequences, threads=max(int(threads), 1), device=self.device
         )
         self._orient_eng: Optional["UnifiedAligner"] = None
+
+    def _engine(self, params: AlignmentParams) -> "UnifiedAligner":
+        return UnifiedAligner(
+            resolve_penalties(params), dense_config=self.dense_config,
+            wavefront_config=self.engine_config, device=self.device,
+        )
 
     @classmethod
     def with_options(
@@ -222,13 +211,10 @@ class AllPairAligner:
     def _orient_wfa(self, chunk: np.ndarray) -> List[bool]:
         """WFA-edit-distance orientation (reference: alignment.rs:157-175):
         align both orientations globally with the orientation params and
-        compare X+I+D op counts; ties go forward."""
+        compare X+I+D op counts, the summed lengths of the runs whose op
+        is not M; ties go forward."""
         if self._orient_eng is None:
-            pen = resolve_penalties(self.orientation_params)
-            self._orient_eng = UnifiedAligner(
-                pen, dense_config=self.dense_config,
-                wavefront_config=self.engine_config, device=self.device,
-            )
+            self._orient_eng = self._engine(self.orientation_params)
         eng = self._orient_eng
         fwd_pairs = []
         rev_pairs = []
@@ -239,21 +225,41 @@ class AllPairAligner:
             rev_pairs.append((self._orient.rc(int(i)), self.sequences[int(j)].seq))
         fwd = eng.align_pairs(fwd_pairs)
         rev = eng.align_pairs(rev_pairs)
-        out = []
-        for f, r in zip(fwd, rev):
-            fd = int(np.count_nonzero(f[1] != ord("M"))) if f is not None else 2**62
-            rd = int(np.count_nonzero(r[1] != ord("M"))) if r is not None else 2**62
-            out.append(not (fd <= rd))
-        return out
+
+        def edits(res):
+            if res is None:
+                return 2**62
+            ops, lens = res[1]
+            return int(np.asarray(lens, np.int64)[np.asarray(ops) != ord("M")].sum())
+
+        return [not (edits(f) <= edits(r)) for f, r in zip(fwd, rev)]
 
     def _orient_all(self):
-        """Orientation for the ENTIRE run in one shot (mash mode): one
-        decision-matrix pass, ONE sequence pool shared by every chunk —
-        the engine's device-pool cache then uploads it once per run
-        instead of once per chunk. Falls back to per-chunk work for the
-        WFA-orientation mode (its both-strand alignments would
-        materialize every CIGAR at once)."""
+        """Orientation for the ENTIRE run in one shot, in mash mode only:
+        one decision-matrix pass, ONE sequence pool shared by every
+        chunk, which the engine's device pool then uploads once per run
+        instead of once per chunk. The WFA-orientation mode orients a
+        chunk at a time (`_oriented_chunks`)."""
         return self._orient_chunk(self.pairs)
+
+    def _oriented_chunks(self, run_wide: bool):
+        """(chunk index, chunk, is_reverse, (pool_seqs, qidx, tidx),
+        sigma_hint) for each chunk of the pairs, in order: sliced from one
+        run-wide orientation, or oriented a chunk at a time. Sets
+        `counters.chunk` before each chunk's orientation."""
+        pairs = self.pairs
+        if run_wide:
+            pool_all, qidx_all, tidx_all, revs_all, sigma_all = self._orient_all()
+        for ci, lo in enumerate(range(0, pairs.shape[0], self.chunk_size)):
+            counters.chunk = ci
+            chunk = pairs[lo : lo + self.chunk_size]
+            if run_wide:
+                sl = slice(lo, lo + chunk.shape[0])
+                yield (ci, chunk, revs_all[sl], (pool_all, qidx_all[sl], tidx_all[sl]),
+                       sigma_all[sl] if sigma_all is not None else None)
+            else:
+                pool_seqs, qidx, tidx, revs, sigma_hint = self._orient_chunk(chunk)
+                yield ci, chunk, revs, (pool_seqs, qidx, tidx), sigma_hint
 
     # -- main loop ----------------------------------------------------------
 
@@ -261,17 +267,8 @@ class AllPairAligner:
         self, callback: Callable[[AlignmentResult], None]
     ) -> None:
         counters.begin_run()
-        pen = resolve_penalties(self.params)
-        eng = UnifiedAligner(
-            pen, dense_config=self.dense_config,
-            wavefront_config=self.engine_config, device=self.device,
-        )
-        pairs = self.pairs
-        run_wide = self.use_mash_orientation and pairs.shape[0] > 0
-        if run_wide:
-            pool_seqs_all, qidx_all, tidx_all, revs_all, sigma_all = (
-                self._orient_all()
-            )
+        eng = self._engine(self.params)
+        run_wide = self.use_mash_orientation and self.pairs.shape[0] > 0
 
         # the emit loop is pure host Python; running it on a worker
         # thread overlaps it with the NEXT chunk's launches and copy
@@ -301,29 +298,9 @@ class AllPairAligner:
         ex = ThreadPoolExecutor(1)
         pending = None  # (handle, chunk, revs, chunk index) awaiting .finish()
         try:
-            for ci, lo in enumerate(range(0, pairs.shape[0], self.chunk_size)):
-                counters.chunk = ci
-                chunk = pairs[lo : lo + self.chunk_size]
-                if run_wide:
-                    sl = slice(lo, lo + chunk.shape[0])
-                    pool_seqs, qidx, tidx, revs, sigma_hint = (
-                        pool_seqs_all,
-                        qidx_all[sl],
-                        tidx_all[sl],
-                        revs_all[sl],
-                        sigma_all[sl] if sigma_all is not None else None,
-                    )
-                else:
-                    pool_seqs, qidx, tidx, revs, sigma_hint = (
-                        self._orient_chunk(chunk)
-                    )
+            for ci, chunk, revs, indexed, sigma_hint in self._oriented_chunks(run_wide):
                 handle = eng.align_pairs_indexed_async(
-                    pool_seqs,
-                    qidx,
-                    tidx,
-                    with_stats=True,
-                    sigma_hint=sigma_hint,
-                    as_runs=True,
+                    *indexed, with_stats=True, sigma_hint=sigma_hint
                 )
                 if pending is not None:
                     p_handle, p_chunk, p_revs, p_ci = pending
@@ -343,70 +320,19 @@ class AllPairAligner:
 
     @staticmethod
     def _emit_chunk(callback, chunk, revs, aligned, stats) -> None:
-        # one C-level conversion for the whole chunk instead of
-        # 6 scalar int() calls per record; AlignmentResult is built
-        # inline via __new__ + slot stores, skipping the
-        # _result_from_cigar call overhead per record
-        chunk_l = chunk.tolist()
-        stats_l = stats.tolist()
-        revs_l = revs.tolist()
-        AR = AlignmentResult
-        new = AR.__new__
-        for (i, j), is_rev, res, st in zip(chunk_l, revs_l, aligned, stats_l):
-            if res is None:
-                result = AR.failed(i, j, is_rev)
-            else:
-                r = new(AR)
-                r.query_idx = i
-                r.target_idx = j
-                r.query_start = 0
-                r.target_start = 0
-                r.is_reverse = is_rev
-                r.score = res[0]
-                cigar = res[1]
-                (
-                    r.num_matches,
-                    r.alignment_length,
-                    r.query_end,
-                    r.target_end,
-                ) = st
-                if type(cigar) is tuple:
-                    r._cigar_bytes = None
-                    r._cigar_runs = cigar
-                else:
-                    r._cigar_bytes = cigar
-                    r._cigar_runs = None
-                result = r
+        for result in _results(chunk, revs, aligned, stats):
             callback(result)
 
     def __iter__(self):
         """Sequential pull-based iteration (reference: iterator.rs:151-171).
-        Still batched under the hood, chunk by chunk."""
-        pen = resolve_penalties(self.params)
-        eng = UnifiedAligner(
-            pen, dense_config=self.dense_config,
-            wavefront_config=self.engine_config, device=self.device,
-        )
-        pairs = self.pairs
-        for lo in range(0, pairs.shape[0], self.chunk_size):
-            chunk = pairs[lo : lo + self.chunk_size]
-            pool_seqs, qidx, tidx, revs, sigma_hint = self._orient_chunk(chunk)
+        Still batched under the hood, chunk by chunk, each oriented and
+        aligned when the one before it is used up."""
+        eng = self._engine(self.params)
+        for _, chunk, revs, indexed, sigma_hint in self._oriented_chunks(False):
             aligned, stats = eng.align_pairs_indexed(
-                pool_seqs,
-                qidx,
-                tidx,
-                with_stats=True,
-                sigma_hint=sigma_hint,
-                as_runs=True,
+                *indexed, with_stats=True, sigma_hint=sigma_hint
             )
-            for (i, j), is_rev, res, st in zip(
-                chunk.tolist(), revs.tolist(), aligned, stats.tolist()
-            ):
-                if res is None:
-                    yield AlignmentResult.failed(i, j, is_rev)
-                else:
-                    score, cigar = res
-                    yield _result_from_cigar(i, j, is_rev, score, cigar, st)
+            yield from _results(chunk, revs, aligned, stats)
 
 
 def process_alignments_with_callback(

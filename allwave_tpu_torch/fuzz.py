@@ -57,10 +57,13 @@ import numpy as np
 
 from . import native
 from .core.cigar import validate_cigar
+from .device import resolve_device
 from .probes.step_split import _card
 from .testing import fuzzgen
+from .wfa.batch import expand_runs
 from .wfa.dense_engine import DenseBandAligner
 from .wfa.params import resolve_penalties
+from .wfa.rounds import SequencePool
 from .wfa.segmented import SegmentedConfig, SegmentedDenseAligner
 from .wfa.wf_segmented import WavefrontSegmentedAligner, WfSegConfig
 
@@ -79,6 +82,13 @@ PLAIN_MAX = 400
 
 class FuzzError(RuntimeError):
     """A check the fuzz cannot run (no oracle, a phase with no case)."""
+
+
+def _per_base(results):
+    """An engine's results with their runs expanded to per-base cigars
+    (engines may split runs differently at segment edges); None and the
+    wavefront engine's fallback sentinel as they are."""
+    return [r if r is None or isinstance(r, str) else (r[0], expand_runs(*r[1])) for r in results]
 
 
 def _same(a, b) -> bool:
@@ -147,10 +157,10 @@ def phase1(seed: int, budget_s: float, device: str, max_cases=None, log=print, l
         params, pairs = fuzzgen.phase1_case(rng)
         pen = resolve_penalties(params)
         dense = DenseBandAligner(pen, device=device)
-        seg = SegmentedDenseAligner(pen, SegmentedConfig(ckpt_every=512), dense=dense)
-        results = [dense.align_pairs(pairs), seg.align_pairs(pairs)]
+        seg = SegmentedDenseAligner(pen, SegmentedConfig(ckpt_every=512), pool=dense.pool)
+        results = [_per_base(dense.align_pairs(pairs)), _per_base(seg.align_pairs(pairs))]
         if not on_cpu and all(len(q) <= PLAIN_MAX and len(t) <= PLAIN_MAX for q, t in pairs):
-            results.append(DenseBandAligner(pen, device="cpu").align_pairs(pairs))
+            results.append(_per_base(DenseBandAligner(pen, device="cpu").align_pairs(pairs)))
             n["plain_compared"] += len(pairs)
 
         def oracle(i):
@@ -188,13 +198,13 @@ def phase2(seed: int, budget_s: float, device: str, max_cases: int = WF_MAX_CASE
         params = fuzzgen.WF_PARAMS[pi]
         pen = resolve_penalties(params)
         if pi not in engines:
-            dense = DenseBandAligner(pen, device=device)
-            engines[pi] = (WavefrontSegmentedAligner(pen, WfSegConfig(), dense=dense),
-                           SegmentedDenseAligner(pen, SegmentedConfig(), dense=dense))
+            pool = SequencePool(resolve_device(device))
+            engines[pi] = (WavefrontSegmentedAligner(pen, WfSegConfig(), pool=pool),
+                           SegmentedDenseAligner(pen, SegmentedConfig(), pool=pool))
         wf, sg = engines[pi]
         L, pairs, hints = fuzzgen.phase2_batch(rng, pen.x, fuzzgen.WF_LENGTHS)
-        a = wf.align_pairs(pairs, sigma_hint=hints)
-        b = sg.align_pairs(pairs, sigma_hint=hints)
+        a = _per_base(wf.align_pairs(pairs, sigma_hint=hints))
+        b = _per_base(sg.align_pairs(pairs, sigma_hint=hints))
         keep = [i for i, r in enumerate(a) if r is not WavefrontSegmentedAligner.DENSE_FALLBACK]
         n["fallback_routings"] += len(pairs) - len(keep)
         n["failures"] += _check([[a[i] for i in keep], [b[i] for i in keep]],
@@ -218,10 +228,10 @@ def mutation_worker(seed: int, L: int, n_pairs: int, device: str) -> None:
 
     pen = resolve_penalties(AlignmentParams(0, 5, 8, 2, 24, 1))
     pairs, hints = fuzzgen.tie_rich_batch(np.random.RandomState(seed), L, n_pairs)
-    dense = DenseBandAligner(pen, device=device)
-    wf = WavefrontSegmentedAligner(pen, WfSegConfig(), dense=dense)
-    a = wf.align_pairs(pairs, sigma_hint=hints)
-    b = SegmentedDenseAligner(pen, SegmentedConfig(), dense=dense).align_pairs(pairs, sigma_hint=hints)
+    pool = SequencePool(resolve_device(device))
+    wf = WavefrontSegmentedAligner(pen, WfSegConfig(), pool=pool)
+    a = _per_base(wf.align_pairs(pairs, sigma_hint=hints))
+    b = _per_base(SegmentedDenseAligner(pen, SegmentedConfig(), pool=pool).align_pairs(pairs, sigma_hint=hints))
     walked = [(x, y) for x, y in zip(a, b) if x is not WavefrontSegmentedAligner.DENSE_FALLBACK]
     mismatches = sum(1 for x, y in walked
                      if (x is None) != (y is None) or (x is not None and not _same(x, y)))

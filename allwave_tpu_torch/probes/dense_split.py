@@ -181,6 +181,7 @@ def main(argv=None) -> int:
     del p
 
     from allwave_tpu_torch.testing.synth import MutationConfig, make_test_case
+    from allwave_tpu_torch.wfa.batch import expand_runs
     from allwave_tpu_torch.wfa.dense_engine import UnifiedAligner
 
     seqs = make_test_case(24, 4, 24_000, MutationConfig(0.02, 0.0005, 0.0005)).sequences
@@ -192,7 +193,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     print(json.dumps({"run": "one_shot_24kb", "pairs": len(pairs), "warm_s": min(walls[1:]),
-                      "digest": hashlib.sha256(repr([(r[0], bytes(r[1])) for r in res])
+                      "digest": hashlib.sha256(repr([(r[0], bytes(expand_runs(*r[1]))) for r in res])
                                                .encode()).hexdigest()[:16]}), flush=True)
     return 0
 

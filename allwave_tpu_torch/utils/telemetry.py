@@ -10,9 +10,6 @@ Counters, added where the work happens:
 * `reruns`: pairs queued to be aligned again (band, run-cap or score-cap
   escalations, and the wavefront engine's hand-backs to the segmented
   engine);
-* `expansions`: pairs whose per-base CIGAR byte array the port builds
-  from its runs (a caller that asks for runs, as the pipeline does,
-  builds none);
 * `sketches`: stranded MinHash sets orientation builds (a sequence's
   forward set and its reverse complement's are two);
 * `paf_batches`: the CLI writer's batch passes over its queued records'
@@ -120,7 +117,6 @@ class EngineCounters:
         self.dispatches = 0
         self.syncs = 0
         self.reruns = 0
-        self.expansions = 0
         self.sketches = 0
         self.paf_batches = 0
         self.paf_batched = 0
@@ -134,14 +130,13 @@ class EngineCounters:
         self.chunk: Optional[int] = None
 
     def add(self, cells: int = 0, dispatches: int = 0, syncs: int = 0, reruns: int = 0,
-            expansions: int = 0, sketches: int = 0, paf_batches: int = 0,
+            sketches: int = 0, paf_batches: int = 0,
             paf_batched: int = 0) -> None:
         with self._lock:
             self.cells += cells
             self.dispatches += dispatches
             self.syncs += syncs
             self.reruns += reruns
-            self.expansions += expansions
             self.sketches += sketches
             self.paf_batches += paf_batches
             self.paf_batched += paf_batched
@@ -169,7 +164,6 @@ class EngineCounters:
                 "dispatches": self.dispatches,
                 "syncs": self.syncs,
                 "reruns": self.reruns,
-                "expansions": self.expansions,
                 "sketches": self.sketches,
                 "paf_batches": self.paf_batches,
                 "paf_batched": self.paf_batched,
@@ -185,7 +179,6 @@ class EngineCounters:
             self.dispatches = 0
             self.syncs = 0
             self.reruns = 0
-            self.expansions = 0
             self.sketches = 0
             self.paf_batches = 0
             self.paf_batched = 0

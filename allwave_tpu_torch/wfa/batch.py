@@ -615,8 +615,7 @@ def walk_runs(ops_row: np.ndarray, lens_row: np.ndarray, n: int):
 
 def expand_runs(ops, lens) -> np.ndarray:
     """Start-to-end runs as the per-base WFA2-convention cigar byte
-    array; counted in `counters.expansions`."""
-    counters.add(expansions=1)
+    array."""
     return np.repeat(np.asarray(ops, dtype=np.uint8), np.asarray(lens, dtype=np.int64))
 
 
@@ -631,7 +630,6 @@ def expand_runs_batch(ops, lens, nruns):
     buffers into per-pair per-base cigar byte arrays with ONE np.repeat.
     Returns a list of views into one backing buffer."""
     B, cap = ops.shape
-    counters.add(expansions=B)
     valid = np.arange(cap, dtype=np.int32)[None, :] < np.asarray(nruns)[:, None]
     l64 = lens.astype(np.int64) * valid
     ops_r = ops[:, ::-1]

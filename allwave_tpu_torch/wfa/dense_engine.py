@@ -13,7 +13,9 @@ Every round runs on the device the aligner was given: the CUDA kernels
 on a GPU, their plain PyTorch versions on the CPU. UnifiedAligner sends
 pairs longer than `dense_max_len` to the wavefront checkpoint-replay
 engine (wfa/wf_segmented.py) or the segmented dense engine
-(wfa/segmented.py).
+(wfa/segmented.py); it owns the one sequence pool (wfa/rounds.py) the
+three engines gather from. Every engine hands a certified pair back as
+(score, (ops, lens)) runs, start to end.
 """
 
 from __future__ import annotations
@@ -28,9 +30,12 @@ import torch
 from ..device import resolve_device
 from ..utils.telemetry import counters
 from . import dense as D_
-from .batch import expand_runs_batch
+from .batch import runs_stats
 from .engine import BatchWavefrontAligner, EngineConfig
 from .params import Penalties
+from .rounds import BandLadder, SequencePool, next_pow2, pool_pairs
+from .segmented import SegmentedDenseAligner
+from .wf_segmented import WavefrontSegmentedAligner
 
 
 @dataclass
@@ -79,10 +84,6 @@ class _ReadyResult:
         return self._res
 
 
-def _next_pow2(n: int) -> int:
-    return 1 << max(n - 1, 1).bit_length() if n > 2 else max(n, 1)
-
-
 class DenseBandAligner:
     #: accepted band widths: a {1, 1.5} x pow2 ladder from 128 plus the
     #: 192 and 320 rungs (the kernel takes any K; a finer ladder cuts
@@ -96,15 +97,15 @@ class DenseBandAligner:
         pen: Penalties,
         config: Optional[DenseConfig] = None,
         device=None,
+        pool: Optional[SequencePool] = None,
     ):
+        """pool: the router's shared sequence pool, whose device the
+        engine runs on; without one it makes its own on `device`."""
         self.pen = pen
         self.config = config or DenseConfig()
-        self.device = resolve_device(device)
-        #: (id(pool_seqs), l_pad) -> (pool_seqs, device pool); the
-        #: pipeline hands the same pool list to every chunk and length
-        #: bucket, so it is uploaded once per run. The strong list ref
-        #: keeps the id() from being recycled.
-        self._pool_cache: Dict[Tuple[int, int], Tuple[object, torch.Tensor]] = {}
+        self.pool = pool if pool is not None else SequencePool(resolve_device(device))
+        self.device = self.pool.device
+        self.ladder = BandLadder(pen, self.K_LADDER, self.config.k_initial, self.config.k_max)
         #: (k, run_cap, l_pad) -> parallel.mesh.sharded_dense_step
         self._sharded_steps: Dict[Tuple[int, int, int], object] = {}
 
@@ -130,89 +131,23 @@ class DenseBandAligner:
             self._sharded_steps[key] = fn
         return fn
 
-    def _round_k(self, k: int) -> int:
-        """Smallest accepted band width >= k."""
-        for v in self.K_LADDER:
-            if v >= k:
-                return v
-        return self.K_LADDER[-1]
-
-    def _k_for_score(self, sigma: int, kend_abs: int) -> int:
-        """Smallest accepted band width whose exit-and-return
-        certificate holds for a banded score sigma: the bound is
-        2*g(W+1) with g(n) = min(o1+n*e1, o2+n*e2), so we need the
-        minimal n with g(n) >= sigma//2 + 1 on BOTH pieces."""
-        t = sigma // 2 + 1
-        n = max(1, -(-(t - self.pen.o1) // self.pen.e1))
-        if self.pen.two_piece:
-            n = max(n, -(-(t - self.pen.o2) // self.pen.e2))
-        w = n - 1
-        k = kend_abs + 2 * max(w, 0) + 3
-        return min(
-            self._round_k(max(k, self.config.k_initial)), self.config.k_max
-        )
-
-    def _round_ks(self, k: np.ndarray) -> np.ndarray:
-        """Vectorized _round_k over an int64 array."""
-        ladder = np.asarray(self.K_LADDER, dtype=np.int64)
-        idx = np.searchsorted(ladder, k).clip(0, ladder.size - 1)
-        return ladder[idx]
-
-    def _k_for_scores(self, sigma: np.ndarray, kend_abs: np.ndarray) -> np.ndarray:
-        """Vectorized _k_for_score (same formula element-for-element)."""
-        t = sigma // 2 + 1
-        n1 = np.maximum(1, -(-(t - self.pen.o1) // self.pen.e1))
-        if self.pen.two_piece:
-            n1 = np.maximum(n1, -(-(t - self.pen.o2) // self.pen.e2))
-        w = n1 - 1
-        k = kend_abs + 2 * np.maximum(w, 0) + 3
-        return np.minimum(
-            self._round_ks(np.maximum(k, self.config.k_initial)),
-            self.config.k_max,
-        )
-
-    def _device_pool(self, pool_seqs, l_pad: int) -> torch.Tensor:
-        """ONE device-resident (n_seqs, l_pad) uint8 sequence pool per
-        (pool list, l_pad); batches gather their rows from it by index,
-        so all-pairs workloads upload each sequence once."""
-        key = (id(pool_seqs), l_pad)
-        hit = self._pool_cache.get(key)
-        if hit is not None and hit[0] is pool_seqs:
-            return hit[1]
-        with counters.span("engine.plan"):
-            pool = np.zeros((max(len(pool_seqs), 1), l_pad), dtype=np.uint8)
-            for r, sq in enumerate(pool_seqs):
-                if len(sq) <= l_pad:
-                    pool[r, : len(sq)] = np.frombuffer(sq, dtype=np.uint8)
-            pool_dev = torch.from_numpy(pool).to(self.device)
-        if len(self._pool_cache) > 4:
-            self._pool_cache.clear()
-        self._pool_cache[key] = (pool_seqs, pool_dev)
-        return pool_dev
-
     def align_pairs(
         self,
         pairs: List[Tuple[bytes, bytes]],
         with_stats: bool = False,
         sigma_hint=None,
-        as_runs: bool = False,
     ):
-        """[(score, cigar)] in input order (None = failed). With
-        with_stats=True also returns an (n, 4) int64 array of
-        [num_matches, alignment_length, query_len, target_len] (zeros
-        for failed rows).
-
-        as_runs=True: each cigar comes back as (ops, lens) run pairs in
-        start->end order instead of a per-base byte array.
+        """[(score, (ops, lens))] in input order (None = failed): each
+        cigar as run pairs in start->end order. With with_stats=True
+        also returns an (n, 4) int64 array of [num_matches,
+        alignment_length, query_len, target_len] (zeros for failed rows).
 
         sigma_hint: optional per-pair estimated alignment scores (e.g.
         from mash distances) — each pair starts at the band width its
         estimate certifies. Wrong hints only cost an escalation round;
         results stay exact."""
-        pool_seqs, qidx, tidx = _pool_pairs(pairs)
-        return self.align_pairs_indexed(
-            pool_seqs, qidx, tidx, with_stats, sigma_hint, as_runs
-        )
+        pool_seqs, qidx, tidx = pool_pairs(pairs)
+        return self.align_pairs_indexed(pool_seqs, qidx, tidx, with_stats, sigma_hint)
 
     def align_pairs_indexed(
         self,
@@ -221,13 +156,12 @@ class DenseBandAligner:
         tidx: np.ndarray,
         with_stats: bool = False,
         sigma_hint=None,
-        as_runs: bool = False,
     ):
         """align_pairs with the pair list in pooled-index form:
         pool_seqs is a list of byte strings and qidx/tidx are per-pair
         row indices into it."""
         return self.align_pairs_indexed_async(
-            pool_seqs, qidx, tidx, with_stats, sigma_hint, as_runs
+            pool_seqs, qidx, tidx, with_stats, sigma_hint
         ).finish()
 
     def align_pairs_indexed_async(
@@ -237,7 +171,6 @@ class DenseBandAligner:
         tidx: np.ndarray,
         with_stats: bool = False,
         sigma_hint=None,
-        as_runs: bool = False,
     ):
         """Non-blocking align_pairs_indexed: the initial rounds are
         LAUNCHED before this returns (the device computes while the
@@ -245,7 +178,7 @@ class DenseBandAligner:
         waits for their results, runs any escalation rounds and returns
         the same results as the blocking call."""
         n = len(qidx)
-        results: List[Optional[Tuple[int, np.ndarray]]] = [None] * n
+        results: List[Optional[Tuple[int, tuple]]] = [None] * n
         stats = np.zeros((n, 4), dtype=np.int64)
         if n == 0:
             return _ReadyResult((results, stats) if with_stats else results)
@@ -260,15 +193,16 @@ class DenseBandAligner:
             sum_lens = qlens_all + tlens_all
             kend_abs_all = np.abs(tlens_all - qlens_all)
             max_len = int(max(qlens_all.max(), tlens_all.max()))
-            l_pad = _next_pow2(max(max_len, 4))
+            l_pad = next_pow2(max(max_len, 4))
+            ladder = self.ladder
 
             k0 = max(
-                self._round_k(self.config.k_initial),
-                self._round_k(int(kend_abs_all.max()) + 2),
+                ladder.round(self.config.k_initial),
+                ladder.round(int(kend_abs_all.max()) + 2),
             )
             # a band of k_full diagonals covers the whole matrix — widening
             # past it is pointless (the full-cover certificate always fires)
-            k_full = self._round_k(max(int(sum_lens.max()) + 1, 2))
+            k_full = ladder.round(max(int(sum_lens.max()) + 1, 2))
             k0 = min(k0, k_full)
             # run buffers scale with length: a pure-match CIGAR already
             # needs L/255 runs, and event counts grow with L
@@ -288,10 +222,10 @@ class DenseBandAligner:
                 # 12.5% for rung selection — pairs whose true score exceeds
                 # the narrower band's certificate escalate and stay exact.
                 sig = np.asarray(sigma_hint, dtype=np.int64)
-                ks = self._k_for_scores(sig - (sig >> 3), kend_abs_all)
-                ks = np.maximum(ks, self._round_k(self.config.k_initial))
-                ks = np.maximum(ks, self._round_ks(kend_abs_all + 2))
-                ks = np.minimum(ks, self._round_ks(sum_lens + 1))
+                ks = ladder.for_scores(sig - (sig >> 3), kend_abs_all)
+                ks = np.maximum(ks, ladder.round(self.config.k_initial))
+                ks = np.maximum(ks, ladder.round_many(kend_abs_all + 2))
+                ks = np.minimum(ks, ladder.round_many(sum_lens + 1))
                 rounds = {}
                 order = np.argsort(ks, kind="stable")
                 uniq_ks = np.unique(ks)
@@ -300,7 +234,7 @@ class DenseBandAligner:
                     hi = bounds[b + 1] if b + 1 < len(bounds) else n
                     rounds[(int(kv), cap0)] = order[bounds[b] : hi].tolist()
             pool = (
-                self._device_pool(pool_seqs, l_pad),
+                self.pool.rows(pool_seqs, l_pad),
                 np.asarray(qidx, dtype=np.int64),
                 np.asarray(tidx, dtype=np.int64),
                 qlens_all.astype(np.int32),
@@ -347,7 +281,7 @@ class DenseBandAligner:
                         flat = fut.result()
                     with counters.span("engine.unpack"):
                         escalate = self._collect_group(
-                            group, flat, results, stats, kk, cc, l_pad, lens, as_runs
+                            group, flat, results, stats, kk, cc, l_pad, lens
                         )
                         for i, key in escalate:
                             rounds.setdefault(key, []).append(i)
@@ -417,11 +351,11 @@ class DenseBandAligner:
         return D_.dense_align_packed(*args, self.pen, k, l_pad, run_cap)
 
     def _collect_group(
-        self, group, packed, results, stats, k, run_cap, l_pad,
-        pair_lens, as_runs,
+        self, group, packed, results, stats, k, run_cap, l_pad, pair_lens,
     ) -> List[Tuple[int, Tuple[int, int]]]:
         """Host-side unpack of one group's packed result rows; fills
-        certified results and returns [(pair_idx, (next_k, next_cap))]
+        certified results with their runs, reversed from the walk's
+        end-to-start buffer, and returns [(pair_idx, (next_k, next_cap))]
         for the pairs that escalate."""
         meta = packed[:, :32].copy().view(np.int32).reshape(-1, 8)
         scores, nruns, cert, overflow = (meta[:, c] for c in range(4))
@@ -434,8 +368,6 @@ class DenseBandAligner:
         good = (cert == 1) & (overflow == 0)
         full_cap = 2 * l_pad + 8
 
-        if not as_runs:
-            cigars = expand_runs_batch(ops, lens, nruns)
         good_rows = np.flatnonzero(good)
         stats_block = meta[good_rows, 4:8].astype(np.int64)
         escalate: List[Tuple[int, Tuple[int, int]]] = []
@@ -443,15 +375,12 @@ class DenseBandAligner:
         nruns_l = nruns.tolist()
         for row, j in enumerate(good_rows.tolist()):
             i = group[j]
-            if as_runs:
-                nr = nruns_l[j]
-                if nr > 0:
-                    runs = (ops[j, nr - 1 :: -1], lens[j, nr - 1 :: -1])
-                else:
-                    runs = (np.zeros(0, np.uint8), np.zeros(0, np.uint8))
-                results[i] = (scores_l[j], runs)
+            nr = nruns_l[j]
+            if nr > 0:
+                runs = (ops[j, nr - 1 :: -1], lens[j, nr - 1 :: -1])
             else:
-                results[i] = (scores_l[j], cigars[j])
+                runs = (np.zeros(0, np.uint8), np.zeros(0, np.uint8))
+            results[i] = (scores_l[j], runs)
             stats[i] = stats_block[row]
         for j in np.flatnonzero(~good).tolist():
             i = group[j]
@@ -464,15 +393,15 @@ class DenseBandAligner:
                 kend_abs = abs(int(pair_lens[1][i] - pair_lens[0][i]))
                 # strict widening = the next ladder rung; at the top
                 # rung the pair fails for good
-                nup = self._round_k(k + 1)
+                nup = self.ladder.round(k + 1)
                 if nup <= k:
                     continue
                 if scores[j] < D_.INF:
-                    nk = max(self._k_for_score(int(scores[j]), kend_abs), nup)
+                    nk = max(self.ladder.for_score(int(scores[j]), kend_abs), nup)
                 else:
                     # no banded score to size from: jump ~2x, on-ladder
-                    nk = max(self._round_k(2 * k), nup)
-                k_full = self._round_k(
+                    nk = max(self.ladder.round(2 * k), nup)
+                k_full = self.ladder.round(
                     int(pair_lens[0][i] + pair_lens[1][i]) + 1
                 )
                 nk = min(nk, max(k_full, nup))
@@ -484,20 +413,6 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
-def _pool_pairs(pairs):
-    """(pool_seqs, qidx, tidx) for a list of (query, target) byte pairs:
-    each distinct sequence appears once in the pool."""
-    n = len(pairs)
-    pool_map: Dict[bytes, int] = {}
-    for q, t in pairs:
-        for sq in (q, t):
-            if sq not in pool_map:
-                pool_map[sq] = len(pool_map)
-    qidx = np.fromiter((pool_map[q] for q, _ in pairs), dtype=np.int64, count=n)
-    tidx = np.fromiter((pool_map[t] for _, t in pairs), dtype=np.int64, count=n)
-    return list(pool_map), qidx, tidx
-
-
 class UnifiedAligner:
     """Length-routed dispatcher. Pairs of at most `dense_max_len`
     bases go to the one-shot dense banded engine, bucketed by padded
@@ -506,8 +421,8 @@ class UnifiedAligner:
     checkpoint-replay engine, which hands back per pair (DENSE_FALLBACK)
     what its band or score ceilings cannot take; those, the hintless
     pairs and every long pair on the CPU go to the segmented dense engine
-    with their hints. All three engines share the dense engine's device
-    and sequence pool. The batched wavefront engine stays available as
+    with their hints. The router owns the device and the one sequence
+    pool, and hands the pool to all three engines. The batched wavefront engine stays available as
     `wavefront` for score-only discovery workloads and as a cross-check
     (wfa/engine.py); building it allocates nothing."""
 
@@ -521,15 +436,13 @@ class UnifiedAligner:
         *,
         device=None,
     ):
-        from .segmented import SegmentedDenseAligner
-        from .wf_segmented import WavefrontSegmentedAligner
-
         self.pen = pen
         self.dense_max_len = dense_max_len
-        self.dense = DenseBandAligner(pen, dense_config, device)
-        self.device = self.dense.device
-        self.segmented = SegmentedDenseAligner(pen, segmented_config, dense=self.dense)
-        self.wf_segmented = WavefrontSegmentedAligner(pen, dense=self.dense)
+        self.device = resolve_device(device)
+        self.pool = SequencePool(self.device)
+        self.dense = DenseBandAligner(pen, dense_config, pool=self.pool)
+        self.segmented = SegmentedDenseAligner(pen, segmented_config, pool=self.pool)
+        self.wf_segmented = WavefrontSegmentedAligner(pen, pool=self.pool)
         self.wavefront = BatchWavefrontAligner(pen, wavefront_config, device=self.device)
 
     def align_pairs(
@@ -537,12 +450,9 @@ class UnifiedAligner:
         pairs: List[Tuple[bytes, bytes]],
         with_stats: bool = False,
         sigma_hint=None,
-        as_runs: bool = False,
     ):
-        pool_seqs, qidx, tidx = _pool_pairs(pairs)
-        return self.align_pairs_indexed(
-            pool_seqs, qidx, tidx, with_stats, sigma_hint, as_runs
-        )
+        pool_seqs, qidx, tidx = pool_pairs(pairs)
+        return self.align_pairs_indexed(pool_seqs, qidx, tidx, with_stats, sigma_hint)
 
     def align_pairs_indexed(
         self,
@@ -551,12 +461,11 @@ class UnifiedAligner:
         tidx: np.ndarray,
         with_stats: bool = False,
         sigma_hint=None,
-        as_runs: bool = False,
     ):
         """align_pairs in pooled-index form (see
         DenseBandAligner.align_pairs_indexed)."""
         return self.align_pairs_indexed_async(
-            pool_seqs, qidx, tidx, with_stats, sigma_hint, as_runs
+            pool_seqs, qidx, tidx, with_stats, sigma_hint
         ).finish()
 
     def align_pairs_indexed_async(
@@ -566,13 +475,12 @@ class UnifiedAligner:
         tidx: np.ndarray,
         with_stats: bool = False,
         sigma_hint=None,
-        as_runs: bool = False,
     ):
         """Non-blocking align_pairs_indexed: every length bucket is
         LAUNCHED before this returns; the handle's .finish() collects
         them and returns the same results as the blocking call."""
         n = len(qidx)
-        results: List[Optional[Tuple[int, np.ndarray]]] = [None] * n
+        results: List[Optional[Tuple[int, tuple]]] = [None] * n
         stats = np.zeros((n, 4), dtype=np.int64)
         if n == 0:
             return _ReadyResult((results, stats) if with_stats else results)
@@ -619,7 +527,6 @@ class UnifiedAligner:
                         tidx[ia],
                         with_stats=True,
                         sigma_hint=hint,
-                        as_runs=as_runs,
                     ),
                 )
             )
@@ -632,14 +539,12 @@ class UnifiedAligner:
                         results[i] = r
                     stats[ia] = st
             if long_idx:
-                self._align_long(pool_seqs, qidx, tidx, long_idx, sigma_arr, results, stats,
-                                 as_runs)
+                self._align_long(pool_seqs, qidx, tidx, long_idx, sigma_arr, results, stats)
             return (results, stats) if with_stats else results
 
         return _AsyncResult(finish)
 
-    def _align_long(self, pool_seqs, qidx, tidx, long_idx, sigma_arr, results, stats,
-                    as_runs):
+    def _align_long(self, pool_seqs, qidx, tidx, long_idx, sigma_arr, results, stats):
         """Long-pair leg (reference: UnifiedAligner._align_long). On a
         CUDA device hinted pairs go to the wavefront engine first, as the
         reference sends them to its Pallas engine on the TPU; on the CPU
@@ -649,12 +554,7 @@ class UnifiedAligner:
         escalation). ALLWAVE_WFSEG=0 or 1 forces the route. Pairs the
         wavefront engine hands back go to the segmented engine with
         their hints. Both engines hand back their walks' runs, and the
-        stats are taken from them; with as_runs=False each is then
-        expanded to its per-base cigar array. Fills results and stats
-        in place."""
-        from .batch import expand_runs, runs_stats
-        from .wf_segmented import WavefrontSegmentedAligner as _W
-
+        stats are taken from them. Fills results and stats in place."""
         with counters.span("engine.plan"):
             ia = np.asarray(long_idx, dtype=np.int64)
             qi = np.asarray(qidx)[ia]
@@ -666,26 +566,19 @@ class UnifiedAligner:
             else:
                 use_wf = wfseg == "1"
         if use_wf:
-            out = self.wf_segmented.align_pairs_indexed(
-                pool_seqs, qi, ti, sigma_hint=hint, as_runs=True
-            )
-            fb = [j for j, r in enumerate(out) if r is None or r is _W.DENSE_FALLBACK]
+            out = self.wf_segmented.align_pairs_indexed(pool_seqs, qi, ti, sigma_hint=hint)
+            fallback = WavefrontSegmentedAligner.DENSE_FALLBACK
+            fb = [j for j, r in enumerate(out) if r is None or r is fallback]
             if fb:
                 dense_out = self.segmented.align_pairs_indexed(
                     pool_seqs, qi[fb], ti[fb],
                     sigma_hint=[hint[j] for j in fb] if hint is not None else None,
-                    as_runs=True,
                 )
                 for j, r in zip(fb, dense_out):
                     out[j] = r
         else:
-            out = self.segmented.align_pairs_indexed(
-                pool_seqs, qi, ti, sigma_hint=hint, as_runs=True
-            )
+            out = self.segmented.align_pairs_indexed(pool_seqs, qi, ti, sigma_hint=hint)
         with counters.span("engine.unpack"):
-            st = runs_stats([r[1] if r is not None else None for r in out])
-            for row, (i, r) in enumerate(zip(long_idx, out)):
-                if r is not None and not as_runs:
-                    r = (r[0], expand_runs(*r[1]))
+            stats[ia] = runs_stats([r[1] if r is not None else None for r in out])
+            for i, r in zip(long_idx, out):
                 results[i] = r
-                stats[i] = st[row]

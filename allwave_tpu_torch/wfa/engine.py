@@ -37,6 +37,7 @@ from ..device import resolve_device
 from ..utils.telemetry import to_host
 from . import batch as B_
 from .params import Penalties
+from .rounds import next_pow2
 
 
 @dataclass
@@ -74,20 +75,16 @@ class BatchWavefrontAligner:
             out[i, : len(s)] = np.frombuffer(s, dtype=np.uint8)
         return out
 
-    @staticmethod
-    def _next_pow2(n: int) -> int:
-        return 1 << max(n - 1, 1).bit_length() if n > 2 else max(n, 1)
-
     def _batch(self, pairs: List[Tuple[bytes, bytes]], with_history: bool):
         """(qs, ts, qlens, tlens) on the device for one forward: the
         batch padded to a power of two with empty pairs unless it keeps
         history, the rows to a power of two of at least L_ALIGN bytes."""
         if not with_history:
-            pairs = pairs + [(b"", b"")] * (self._next_pow2(len(pairs)) - len(pairs))
+            pairs = pairs + [(b"", b"")] * (next_pow2(len(pairs)) - len(pairs))
         qlens = np.array([len(q) for q, _ in pairs], dtype=np.int32)
         tlens = np.array([len(t) for _, t in pairs], dtype=np.int32)
         longest = int(max(qlens.max(), tlens.max(), 1))
-        l_pad = max(self._next_pow2(max(longest, 4)), B_.L_ALIGN)
+        l_pad = max(next_pow2(max(longest, 4)), B_.L_ALIGN)
         arrays = (
             self._pad_batch([q for q, _ in pairs], l_pad),
             self._pad_batch([t for _, t in pairs], l_pad),

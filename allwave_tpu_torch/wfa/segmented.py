@@ -47,9 +47,10 @@ import torch
 from ..device import resolve_device
 from ..utils.telemetry import counters, to_host
 from . import dense as D
-from .batch import expand_runs_to_cigar, walk_runs
+from .batch import walk_runs
 from .dense import INF, LaunchCount, band_geometry
 from .params import Penalties
+from .rounds import BandLadder, SequencePool, next_pow2, pool_pairs
 
 #: span kernel launches, shapes (B, K, k_sub, l_pad, n_steps, with_planes)
 #: (k_sub = K on a full-band span), each with its `SpanDesign`
@@ -657,8 +658,8 @@ class SegmentedConfig:
 class SegmentedDenseAligner:
     """Long-pair aligner (reference: segmented.SegmentedDenseAligner):
     exact dense banded alignment in O(K * 2L / C) checkpoint memory
-    instead of O(2L * K) planes. Runs on the device of its dense engine,
-    whose sequence pool it shares."""
+    instead of O(2L * K) planes. Runs on the device of its sequence pool,
+    the router's when it hands one over."""
 
     #: the reference's segmented ladder, up to 24576 (differs from the
     #: one-shot engine's)
@@ -669,33 +670,13 @@ class SegmentedDenseAligner:
         pen: Penalties,
         config: Optional[SegmentedConfig] = None,
         device=None,
-        dense=None,
+        pool: Optional[SequencePool] = None,
     ):
-        from .dense_engine import DenseBandAligner
-
         self.pen = pen
         self.config = config or SegmentedConfig()
-        self.dense = dense if dense is not None else DenseBandAligner(pen, device=resolve_device(device))
-        self.device = self.dense.device
-
-    def _round_k(self, k: int) -> int:
-        """Smallest accepted band width >= k."""
-        for v in self.K_LADDER:
-            if v >= k:
-                return v
-        return self.K_LADDER[-1]
-
-    def _k_for_score(self, sigma: int, kend_abs: int) -> int:
-        """Smallest accepted band width whose exit-and-return
-        certificate holds for a banded score sigma: the bound is
-        2*g(W+1) with g(n) = min(o1+n*e1, o2+n*e2), so we need the
-        minimal n with g(n) >= sigma//2 + 1 on BOTH pieces."""
-        t = sigma // 2 + 1
-        n = max(1, -(-(t - self.pen.o1) // self.pen.e1))
-        if self.pen.two_piece:
-            n = max(n, -(-(t - self.pen.o2) // self.pen.e2))
-        k = kend_abs + 2 * max(n - 1, 0) + 3
-        return min(self._round_k(max(k, self.config.k_initial)), self.config.k_max)
+        self.pool = pool if pool is not None else SequencePool(resolve_device(device))
+        self.device = self.pool.device
+        self.ladder = BandLadder(pen, self.K_LADDER, self.config.k_initial, self.config.k_max)
 
     def _run_cap(self, l_pad: int) -> int:
         # every <=255-base match stretch is one run; mutations add runs.
@@ -739,26 +720,19 @@ class SegmentedDenseAligner:
         bound = 2 * (score // g) + score // (255 * u) + min(qlen, tlen) // 255 + n_seg
         return min(bound, every)
 
-    def align_pairs(self, pairs: List[Tuple[bytes, bytes]], sigma_hint=None,
-                    as_runs: bool = False):
-        """[(score, per-base cigar)] in input order (None = failed).
+    def align_pairs(self, pairs: List[Tuple[bytes, bytes]], sigma_hint=None):
+        """[(score, (ops, lens))] in input order (None = failed): each
+        cigar as run pairs in start->end order.
         sigma_hint: optional per-pair estimated scores (mash-derived);
         a pair then starts at the band its shaved estimate certifies
-        instead of probing narrow and escalating through full sweeps.
-        as_runs=True: each cigar comes back as (ops, lens) run pairs in
-        start->end order instead of a per-base byte array."""
-        from .dense_engine import _pool_pairs
+        instead of probing narrow and escalating through full sweeps."""
+        pool_seqs, qidx, tidx = pool_pairs(pairs)
+        return self.align_pairs_indexed(pool_seqs, qidx, tidx, sigma_hint)
 
-        pool_seqs, qidx, tidx = _pool_pairs(pairs)
-        return self.align_pairs_indexed(pool_seqs, qidx, tidx, sigma_hint, as_runs)
-
-    def align_pairs_indexed(self, pool_seqs, qidx, tidx, sigma_hint=None,
-                            as_runs: bool = False):
+    def align_pairs_indexed(self, pool_seqs, qidx, tidx, sigma_hint=None):
         """align_pairs with the pairs as row indices into pool_seqs."""
-        from .dense_engine import _next_pow2
-
         n = len(qidx)
-        results: List[Optional[Tuple[int, np.ndarray]]] = [None] * n
+        results: List[Optional[Tuple[int, tuple]]] = [None] * n
         if n == 0:
             return results
         with counters.span("engine.plan"):
@@ -767,16 +741,15 @@ class SegmentedDenseAligner:
             pool_lens = np.fromiter((len(s) for s in pool_seqs), np.int64, len(pool_seqs))
             ql = pool_lens[qidx]
             tl = pool_lens[tidx]
-            l_pad = _next_pow2(max(int(max(ql.max(), tl.max())), 4))
-            pool = (self.dense._device_pool(pool_seqs, l_pad), qidx, tidx, ql, tl)
+            l_pad = next_pow2(max(int(max(ql.max(), tl.max())), 4))
+            pool = (self.pool.rows(pool_seqs, l_pad), qidx, tidx, ql, tl)
             C = min(self.config.ckpt_every, 2 * l_pad)
             kend = np.abs(tl - ql)
             sums = ql + tl
 
-            k0 = max(
-                self._round_k(self.config.k_initial), self._round_k(int(kend.max()) + 2)
-            )
-            k0 = min(k0, self._round_k(max(int(sums.max()) + 1, 2)))
+            ladder = self.ladder
+            k0 = max(ladder.round(self.config.k_initial), ladder.round(int(kend.max()) + 2))
+            k0 = min(k0, ladder.round(max(int(sums.max()) + 1, 2)))
             cap0 = self._run_cap(l_pad)
             full_cap = 2 * l_pad + 8
             if sigma_hint is None:
@@ -789,11 +762,11 @@ class SegmentedDenseAligner:
                     # first band: an under-shave costs one escalation sweep
                     hint = int(sigma_hint[i])
                     ki = max(
-                        self._k_for_score(hint - hint // 4, int(kend[i])),
-                        self._round_k(self.config.k_initial),
-                        self._round_k(int(kend[i]) + 2),
+                        ladder.for_score(hint - hint // 4, int(kend[i])),
+                        ladder.round(self.config.k_initial),
+                        ladder.round(int(kend[i]) + 2),
                     )
-                    ki = min(ki, self._round_k(int(sums[i]) + 1))
+                    ki = min(ki, ladder.round(int(sums[i]) + 1))
                     rounds.setdefault((ki, cap0), []).append(i)
         while rounds:
             with counters.span("engine.plan"):
@@ -806,14 +779,13 @@ class SegmentedDenseAligner:
                 idxs = sorted(idxs, key=lambda i: int(sums[i]))
             for lo in range(0, len(idxs), bsz):
                 group = idxs[lo : lo + bsz]
-                escalate = self._run_group(pool, group, results, k, l_pad, C, cap, full_cap,
-                                           as_runs)
+                escalate = self._run_group(pool, group, results, k, l_pad, C, cap, full_cap)
                 counters.add(reruns=len(escalate))
                 for i, key in escalate:
                     rounds.setdefault(key, []).append(i)
         return results
 
-    def _run_group(self, pool, group, results, k, l_pad, C, run_cap, full_cap, as_runs):
+    def _run_group(self, pool, group, results, k, l_pad, C, run_cap, full_cap):
         """Sweep, escalate, replay and walk one group at band k; fills
         results and returns [(pair index, (next k, next run_cap))]."""
         pool_dev, qidx, tidx, ql_all, tl_all = pool
@@ -842,14 +814,14 @@ class SegmentedDenseAligner:
                 kend_abs = abs(int(tl_all[i] - ql_all[i]))
                 # strict widening = the next LADDER rung, not 2*k: doubling
                 # can overshoot k_max and drop a pair the next rung certifies
-                nup = self._round_k(k + 1)
+                nup = self.ladder.round(k + 1)
                 if nup <= k:  # already at the widest rung: failed pair
                     continue
                 if scores[j] < INF:
-                    nk = max(self._k_for_score(int(scores[j]), kend_abs), nup)
+                    nk = max(self.ladder.for_score(int(scores[j]), kend_abs), nup)
                 else:  # no banded score to size from: jump ~2x, on-ladder
-                    nk = max(self._round_k(2 * k), nup)
-                nk = min(nk, max(self._round_k(int(sums[j]) + 1), nup))
+                    nk = max(self.ladder.round(2 * k), nup)
+                nk = min(nk, max(self.ladder.round(int(sums[j]) + 1), nup))
                 escalate.append((i, (nk, run_cap)))
         if not cert.any():
             return escalate
@@ -908,10 +880,5 @@ class SegmentedDenseAligner:
                     else:
                         results[i] = None
                     continue
-                n_j = int(nrun[j])
-                cigar = (
-                    walk_runs(ops[j], lens[j], n_j) if as_runs
-                    else expand_runs_to_cigar(ops[j], lens[j], n_j)
-                )
-                results[i] = (int(scores[j]), cigar)
+                results[i] = (int(scores[j]), walk_runs(ops[j], lens[j], int(nrun[j])))
         return escalate

@@ -60,12 +60,12 @@ from .batch import (
     _make_masks,
     _shift_left,
     _shift_right,
-    expand_runs_to_cigar,
     walk_runs,
 )
 from .dense import LaunchCount
 from .params import Penalties
-from .segmented import WalkDesign, walk_design_of
+from .rounds import BandLadder, SequencePool, next_pow2, pool_pairs
+from .segmented import WalkDesign, narrow_offsets, walk_design_of
 
 _C_M, _C_I1, _C_D1, _C_I2, _C_D2 = 0, 1, 2, 3, 4
 _COMPS = ("m", "i1", "d1", "i2", "d2")
@@ -911,7 +911,8 @@ class WavefrontSegmentedAligner:
     sentinel marks pairs whose score cap or band exceeded the configured
     ceilings, or whose run buffer overflowed; the caller
     (UnifiedAligner) reroutes those to the segmented dense engine. Runs
-    on the device of its dense engine, whose sequence pool it shares."""
+    on the device of its sequence pool, the router's when it hands one
+    over."""
 
     DENSE_FALLBACK = "dense"
 
@@ -919,33 +920,15 @@ class WavefrontSegmentedAligner:
     #: segmented engine's)
     K_LADDER = sorted({128 << i for i in range(8)} | {384 << i for i in range(6)})
 
-    def __init__(self, pen: Penalties, config: Optional[WfSegConfig] = None, device=None, dense=None):
-        from .dense_engine import DenseBandAligner
-
+    def __init__(self, pen: Penalties, config: Optional[WfSegConfig] = None, device=None,
+                 pool: Optional[SequencePool] = None):
         self.pen = pen
         self.config = config or WfSegConfig()
-        self.dense = dense if dense is not None else DenseBandAligner(pen, device=resolve_device(device))
-        self.device = self.dense.device
-
-    @staticmethod
-    def _next_pow2(n: int) -> int:
-        return 1 << max(n - 1, 1).bit_length() if n > 2 else max(n, 1)
-
-    def _round_k(self, k: int) -> int:
-        for v in self.K_LADDER:
-            if v >= k:
-                return v
-        return self.K_LADDER[-1]
-
-    def _k_for_score(self, sigma: int, kend_abs: int) -> int:
-        """Same exit-and-return band bound as the dense engines, on the
-        wavefront ladder and with no k_max clamp."""
-        t = sigma // 2 + 1
-        n = max(1, -(-(t - self.pen.o1) // self.pen.e1))
-        if self.pen.two_piece:
-            n = max(n, -(-(t - self.pen.o2) // self.pen.e2))
-        k = kend_abs + 2 * max(n - 1, 0) + 3
-        return self._round_k(max(k, self.config.k_initial))
+        self.pool = pool if pool is not None else SequencePool(resolve_device(device))
+        self.device = self.pool.device
+        # the same exit-and-return band bound as the dense engines, with
+        # no k_max clamp: a band past k_max hands the pair back
+        self.ladder = BandLadder(pen, self.K_LADDER, self.config.k_initial)
 
     @staticmethod
     def _quantize_hint(hint: int) -> int:
@@ -964,7 +947,7 @@ class WavefrontSegmentedAligner:
     def _s_cap_for_hint(self, hint: int) -> int:
         C = self.config.ckpt_every
         want = max(self.config.s_cap_initial, 2 * hint + C)
-        return min(self._round_up_seg(self._next_pow2(want)), self.config.s_cap_max)
+        return min(self._round_up_seg(next_pow2(want)), self.config.s_cap_max)
 
     def _round_up_seg(self, s: int) -> int:
         C = self.config.ckpt_every
@@ -978,21 +961,14 @@ class WavefrontSegmentedAligner:
         want = max(512, 4 * smax + 64)
         return 1 << (want - 1).bit_length()
 
-    def align_pairs(self, pairs: List[Tuple[bytes, bytes]], sigma_hint=None,
-                    as_runs: bool = False):
-        from .dense_engine import _pool_pairs
+    def align_pairs(self, pairs: List[Tuple[bytes, bytes]], sigma_hint=None):
+        pool_seqs, qidx, tidx = pool_pairs(pairs)
+        return self.align_pairs_indexed(pool_seqs, qidx, tidx, sigma_hint)
 
-        pool_seqs, qidx, tidx = _pool_pairs(pairs)
-        return self.align_pairs_indexed(pool_seqs, qidx, tidx, sigma_hint, as_runs)
-
-    def align_pairs_indexed(self, pool_seqs, qidx, tidx, sigma_hint=None,
-                            as_runs: bool = False):
-        """align_pairs with the pairs as row indices into pool_seqs.
-        as_runs=True: each certified pair's cigar comes back as (ops,
-        lens) run pairs in start->end order instead of a per-base byte
-        array."""
-        from .dense_engine import _next_pow2
-
+    def align_pairs_indexed(self, pool_seqs, qidx, tidx, sigma_hint=None):
+        """align_pairs with the pairs as row indices into pool_seqs; each
+        certified pair's cigar comes back as (ops, lens) run pairs in
+        start->end order."""
         n = len(qidx)
         results: List[object] = [None] * n
         if n == 0:
@@ -1004,8 +980,8 @@ class WavefrontSegmentedAligner:
             pool_lens = np.fromiter((len(s) for s in pool_seqs), np.int64, len(pool_seqs))
             ql = pool_lens[qidx]
             tl = pool_lens[tidx]
-            l_pad_all = _next_pow2(max(int(max(ql.max(), tl.max())), 32))
-            pool = (self.dense._device_pool(pool_seqs, l_pad_all), qidx, tidx, ql, tl)
+            l_pad_all = next_pow2(max(int(max(ql.max(), tl.max())), 32))
+            pool = (self.pool.rows(pool_seqs, l_pad_all), qidx, tidx, ql, tl)
             rounds: Dict[Tuple[int, int], List[int]] = {}
             for i in range(n):
                 kend_abs = int(abs(tl[i] - ql[i]))
@@ -1015,14 +991,14 @@ class WavefrontSegmentedAligner:
                     si = self._s_cap_for_hint(hq)
                     # K from a 1.25x quantized-hint margin (the reference's
                     # Pallas route); certificate failures escalate exactly
-                    ki = self._k_for_score(hq * 5 // 4, kend_abs)
+                    ki = self.ladder.for_score(hq * 5 // 4, kend_abs)
                     # a hint whose own certificate needs a band above k_max
                     # ends in fallback anyway: skip the sweep
-                    if self._k_for_score(hint, kend_abs) > cfg.k_max:
+                    if self.ladder.for_score(hint, kend_abs) > cfg.k_max:
                         results[i] = self.DENSE_FALLBACK
                         continue
                 else:
-                    ki = self._round_k(max(cfg.k_initial, kend_abs + 2))
+                    ki = self.ladder.round(max(cfg.k_initial, kend_abs + 2))
                     si = self._round_up_seg(cfg.s_cap_initial)
                 if ki > cfg.k_max or si > cfg.s_cap_max:
                     results[i] = self.DENSE_FALLBACK
@@ -1054,7 +1030,7 @@ class WavefrontSegmentedAligner:
                 idxs = sorted(idxs, key=lambda i: int(ql[i] + tl[i]))
             for lo in range(0, len(idxs), bsz):
                 group = idxs[lo : lo + bsz]
-                escalate = self._run_group(pool, group, results, k, s_cap, k_sub, as_runs)
+                escalate = self._run_group(pool, group, results, k, s_cap, k_sub)
                 # escalated pairs run again here, handed-back ones on the
                 # segmented engine
                 counters.add(reruns=len(escalate))
@@ -1066,14 +1042,11 @@ class WavefrontSegmentedAligner:
         wf_stats.fallbacks += sum(r is self.DENSE_FALLBACK for r in results)
         return results
 
-    def _run_group(self, pool, group, results, k, s_cap, k_sub, as_runs):
+    def _run_group(self, pool, group, results, k, s_cap, k_sub):
         """Sweep, certify, replay and walk one group at band k (reference:
         _run_group_pallas); fills results and returns
         [(pair index, (next k, next s_cap) | None)], None meaning
         DENSE_FALLBACK."""
-        from .dense_engine import _next_pow2
-        from .segmented import narrow_offsets
-
         cfg = self.config
         pen = self.pen
         C = cfg.ckpt_every
@@ -1084,7 +1057,7 @@ class WavefrontSegmentedAligner:
             gi = np.asarray(group, dtype=np.int64)
             qlens = ql_all[gi].astype(np.int32)
             tlens = tl_all[gi].astype(np.int32)
-            l_pad = _next_pow2(max(int(max(qlens.max(), tlens.max())), 32))
+            l_pad = next_pow2(max(int(max(qlens.max(), tlens.max())), 32))
             rows = pool_dev[:, :l_pad]
             qs = rows.index_select(0, torch.from_numpy(qidx[gi]).to(dev))
             ts = rows.index_select(0, torch.from_numpy(tidx[gi]).to(dev))
@@ -1119,7 +1092,7 @@ class WavefrontSegmentedAligner:
                     ns = s_cap * cfg.s_cap_growth
                     escalate.append((i, None if ns > cfg.s_cap_max else (k, ns)))
                 elif not cert[j]:
-                    nk = max(self._k_for_score(int(scores_h[j]), int(abs(k_end[j]))), 2 * k)
+                    nk = max(self.ladder.for_score(int(scores_h[j]), int(abs(k_end[j]))), 2 * k)
                     escalate.append((i, None if nk > cfg.k_max else (nk, self._round_up_seg(s_cap))))
         if not cert.any():
             return escalate
@@ -1161,10 +1134,5 @@ class WavefrontSegmentedAligner:
                 if overflow[j]:
                     escalate.append((i, None))
                     continue
-                n_j = int(nrun[j])
-                cigar = (
-                    walk_runs(ops[j], lens[j], n_j) if as_runs
-                    else expand_runs_to_cigar(ops[j], lens[j], n_j)
-                )
-                results[i] = (int(scores_h[j]), cigar)
+                results[i] = (int(scores_h[j]), walk_runs(ops[j], lens[j], int(nrun[j])))
         return escalate

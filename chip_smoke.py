@@ -1642,7 +1642,7 @@ def phase21(dev, pen, seqs, pool5b, qi5b, ti5b, wf_out):
     check(all(v > 0 for v in launches.values()),
           f"the batch engine did not launch both kernels: {launches}")
     check(all(g is not None for g in got), "the batch engine failed pairs of the headline")
-    same = [a[0] == b[0] and np.array_equal(a[1], b[1]) for a, b in zip(got, dense)]
+    same = [a[0] == b[0] and np.array_equal(a[1], WB.expand_runs(*b[1])) for a, b in zip(got, dense)]
     check(all(same), f"the batch engine differs from the dense engine on {same.count(False)} "
           f"of {len(same)} headline pairs")
     rounds = sorted([k[0], k[1], n, fwd_designs[k]] for k, n in fwd_shapes.items() if not k[4])
@@ -1717,7 +1717,7 @@ def phase21(dev, pen, seqs, pool5b, qi5b, ti5b, wf_out):
     got5 = eng.align_pairs(pairs5b)
     torch.cuda.synchronize()
     align5_s = time.perf_counter() - t0
-    check(all(a is not None and a[0] == b[0] and np.array_equal(a[1], b[1])
+    check(all(a is not None and a[0] == b[0] and np.array_equal(a[1], WB.expand_runs(*b[1]))
               for a, b in zip(got5, wf_out)),
           "the batch engine's 5b alignments differ from the long path's")
     p5 = {"pairs": len(pairs5b), "discovery_s": disc_s, "discovery_B_K_launches": disc_rounds,
@@ -1766,6 +1766,12 @@ def main() -> int:
     # -- phase 1: environment and kernel build ---------------------------
     from allwave_tpu_torch.wfa import cuda_build
     from allwave_tpu_torch.wfa import dense as D
+    from allwave_tpu_torch.wfa.batch import expand_runs
+
+    def same_cigars(a, b):
+        """Two engines' (score, runs) results agree, their runs expanded
+        (the segmented engines split runs at segment edges)."""
+        return a[0] == b[0] and np.array_equal(expand_runs(*a[1]), expand_runs(*b[1]))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2288,7 +2294,7 @@ def main() -> int:
           and TS.segment_traceback_launches.count > 0,
           "phase 10 did not route 24 kb pairs as intended")
     check(all(r is not None for r in one[0] + segd[0]), "phase 10 has failed pairs")
-    same = [a[0] == b[0] and np.array_equal(a[1], b[1]) for a, b in zip(one[0], segd[0])]
+    same = [same_cigars(a, b) for a, b in zip(one[0], segd[0])]
     check(all(same), f"one-shot and segmented differ on {same.count(False)} of 12 pairs")
     check(np.array_equal(one[1], segd[1]), "one-shot and segmented stats differ")
     # the one-shot run again under the profiler: tier 3's device time (the
@@ -2503,7 +2509,7 @@ def main() -> int:
     finally:
         del os.environ["ALLWAVE_WFSEG"]
     check(all(r is not None for r in wf_out + seg_out), "phase 14 engines have failed pairs")
-    same = [a[0] == b[0] and np.array_equal(a[1], b[1]) for a, b in zip(wf_out, seg_out)]
+    same = [same_cigars(a, b) for a, b in zip(wf_out, seg_out)]
     check(all(same), f"wavefront and segmented engines differ on {same.count(False)} of 56 pairs")
     check(np.array_equal(wf_st, seg_st), "wavefront and segmented stats differ")
     pipe = {(r.query_idx, r.target_idx): r.score for r in res5b}

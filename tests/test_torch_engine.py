@@ -10,6 +10,7 @@ import pytest
 from allwave_tpu.core.scores import parse_scores
 from allwave_tpu.wfa import dense_engine as JE
 from allwave_tpu.wfa.params import resolve_penalties
+from allwave_tpu_torch.wfa import batch as TB
 from allwave_tpu_torch.wfa import dense as TD
 from allwave_tpu_torch.wfa import dense_engine as TE
 
@@ -52,6 +53,7 @@ def _pairs(seed, n, L, div, indel=0.0, len_jitter=0):
 
 
 def _norm(results):
+    """(score, per-base cigar bytes) of each result, runs expanded."""
     out = []
     for r in results:
         if r is None:
@@ -59,34 +61,37 @@ def _norm(results):
             continue
         score, cig = r
         if isinstance(cig, tuple):
-            cig = np.repeat(np.asarray(cig[0], np.uint8), np.asarray(cig[1], np.int64))
+            cig = TB.expand_runs(*cig)
         out.append((int(score), np.asarray(cig, np.uint8).tobytes()))
     return out
 
 
-def _align_both(pen, pairs, jcfg, tcfg, unified=False, **kw):
+def _align_both(pen, pairs, jcfg, tcfg, unified=False, ref_runs=False, **kw):
+    """The port's results (runs) against the reference's, in per-base
+    form or, with ref_runs, as its runs; both expanded."""
     if unified:
         j = JE.UnifiedAligner(pen, dense_config=jcfg)
         t = TE.UnifiedAligner(pen, dense_config=tcfg, device="cpu")
     else:
         j = JE.DenseBandAligner(pen, jcfg)
         t = TE.DenseBandAligner(pen, tcfg, device="cpu")
-    rj, sj = j.align_pairs(pairs, with_stats=True, **kw)
+    rj, sj = j.align_pairs(pairs, with_stats=True, as_runs=ref_runs, **kw)
     rt, st = t.align_pairs(pairs, with_stats=True, **kw)
+    assert all(r is None or isinstance(r[1], tuple) for r in rt)
     assert _norm(rj) == _norm(rt)
     np.testing.assert_array_equal(sj, st)
     return rt, st
 
 
-@pytest.mark.parametrize("as_runs", [False, True])
-def test_escalation_matches_reference(as_runs, launched):
+@pytest.mark.parametrize("ref_runs", [False, True])
+def test_escalation_matches_reference(ref_runs, launched):
     """15%-divergent pairs miss the K=128 certificate and escalate to the
     band their banded score certifies; 1% pairs certify at once."""
     pen = resolve_penalties(parse_scores("0,5,8,2,24,1"))
     pairs = _pairs(1, 4, 240, 0.15, indel=0.02) + _pairs(2, 3, 240, 0.01)
     TD.forward_launches.reset()
     res, _ = _align_both(
-        pen, pairs, JE.DenseConfig(impl="xla"), TE.DenseConfig(), as_runs=as_runs
+        pen, pairs, JE.DenseConfig(impl="xla"), TE.DenseConfig(), ref_runs=ref_runs
     )
     assert all(r is not None for r in res)
     assert launched[0] == (128, 128, 7) and max(k for k, _, _ in launched) > 128
@@ -135,7 +140,7 @@ def test_hint_rounds_match_reference(launched):
         JE.DenseConfig(impl="xla"),
         TE.DenseConfig(),
         sigma_hint=hint,
-        as_runs=True,
+        ref_runs=True,
     )
     # every hint round is under 512 pairs, so they all coalesce into the
     # widest hinted band: one first launch carrying all 14 pairs
@@ -185,7 +190,7 @@ def test_expand_runs_batch_matches_reference():
     ops = rng.choice(np.frombuffer(b"MXID", np.uint8), (5, 9))
     lens = rng.randint(0, 256, (5, 9)).astype(np.uint8)
     nruns = np.array([0, 3, 9, 12, 1])
-    for a, b in zip(expand_runs_batch(ops, lens, nruns), TE.expand_runs_batch(ops, lens, nruns)):
+    for a, b in zip(expand_runs_batch(ops, lens, nruns), TB.expand_runs_batch(ops, lens, nruns)):
         np.testing.assert_array_equal(a, b)
 
 
@@ -193,10 +198,41 @@ def test_expand_runs_batch_matches_reference():
 def test_band_rules_match_reference(sigma):
     pen = resolve_penalties(parse_scores("0,5,8,2,24,1"))
     j = JE.DenseBandAligner(pen, JE.DenseConfig(impl="xla"))
-    t = TE.DenseBandAligner(pen, device="cpu")
-    assert t._k_for_score(sigma, 7) == j._k_for_score(sigma, 7)
+    ladder = TE.DenseBandAligner(pen, device="cpu").ladder
+    assert ladder.rungs == j._ladder() and ladder.k_max == 1 << 14
+    assert ladder.for_score(sigma, 7) == j._k_for_score(sigma, 7)
     sig = np.array([sigma, sigma // 2, sigma * 2], np.int64)
     ke = np.array([0, 5, 40], np.int64)
-    np.testing.assert_array_equal(t._k_for_scores(sig, ke), j._k_for_scores(sig, ke))
-    for k in (1, 128, 129, 200, 321, 3000, 20000):
-        assert t._round_k(k) == j._round_k(k)
+    np.testing.assert_array_equal(ladder.for_scores(sig, ke), j._k_for_scores(sig, ke))
+    ks = (1, 128, 129, 200, 321, 3000, 20000)
+    for k in ks:
+        assert ladder.round(k) == j._round_k(k)
+    np.testing.assert_array_equal(ladder.round_many(np.array(ks)), j._round_ks(np.array(ks)))
+
+
+@pytest.mark.parametrize("module", ["segmented", "wf_segmented"])
+def test_long_engines_do_not_import_the_router(module):
+    """The long engines sit below the router (dense_engine.py): neither
+    imports it, at module level or inside a function, and neither builds
+    another engine; what they share with the dense engine lives in
+    wfa/rounds.py."""
+    import ast
+    import os
+
+    from allwave_tpu_torch import wfa
+
+    path = os.path.join(os.path.dirname(wfa.__file__), module + ".py")
+    tree = ast.parse(open(path).read())
+    imported = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            imported |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            imported.add(node.module or "")
+            imported |= {f"{node.module or ''}.{a.name}" for a in node.names}
+    assert not any(name.split(".")[-1] == "dense_engine" for name in imported), imported
+    called = {n.func.id for n in ast.walk(tree)
+              if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)}
+    others = {"DenseBandAligner", "UnifiedAligner", "SegmentedDenseAligner",
+              "WavefrontSegmentedAligner"}
+    assert not called & others

@@ -23,6 +23,7 @@ from allwave_tpu.wfa.wf_segmented import WfSegConfig as RefWfConfig
 from allwave_tpu_torch import native
 from allwave_tpu_torch.core.cigar import validate_cigar
 from allwave_tpu_torch.core.types import AlignmentParams
+from allwave_tpu_torch.wfa.batch import expand_runs
 from allwave_tpu_torch.wfa.dense_engine import DenseBandAligner
 from allwave_tpu_torch.wfa.params import resolve_penalties
 from allwave_tpu_torch.wfa.segmented import SegmentedConfig, SegmentedDenseAligner
@@ -42,11 +43,17 @@ def _same(a, b):
     np.testing.assert_array_equal(np.asarray(a[1]), np.asarray(b[1]))
 
 
+def _per_base(results):
+    """The port's results with their runs expanded to per-base cigars;
+    None and the wavefront engine's fallback sentinel as they are."""
+    return [r if r is None or isinstance(r, str) else (r[0], expand_runs(*r[1])) for r in results]
+
+
 def _dense_round(params, pairs):
     """The port's and the reference's dense engines and the oracle on
     one round; returns the port's results."""
     pen = resolve_penalties(AlignmentParams(*params.key()))
-    port = DenseBandAligner(pen, device="cpu").align_pairs(pairs)
+    port = _per_base(DenseBandAligner(pen, device="cpu").align_pairs(pairs))
     ref = RefDense(ref_resolve(params), RefDenseConfig(impl="xla")).align_pairs(pairs)
     for i, (q, t) in enumerate(pairs):
         assert port[i] is not None, (params, i)
@@ -80,10 +87,10 @@ def _run_shard(seed, n_rounds, pairs_per_round, with_segmented=True, fast=False)
         wf = WavefrontSegmentedAligner(pen, WfSegConfig(**wf_cfg), device="cpu")
         ref_seg = RefSeg(ref_pen, RefSegConfig(impl="xla", ckpt_every=512))
         ref_wf = RefWf(ref_pen, RefWfConfig(**wf_cfg), impl="xla")
-        for eng in (seg, ref_seg):
-            for r, d in zip(eng.align_pairs(pairs), dense):
+        for res in (_per_base(seg.align_pairs(pairs)), ref_seg.align_pairs(pairs)):
+            for r, d in zip(res, dense):
                 _same(r, d)
-        port_w, ref_w = wf.align_pairs(pairs), ref_wf.align_pairs(pairs)
+        port_w, ref_w = _per_base(wf.align_pairs(pairs)), ref_wf.align_pairs(pairs)
         for pw, rw, d in zip(port_w, ref_w, dense):
             assert isinstance(pw, tuple) == isinstance(rw, tuple), (params, pw, rw)
             if isinstance(pw, tuple):  # within the wavefront engine's caps

@@ -20,9 +20,16 @@ import torch
 from allwave_tpu_torch.core.scores import parse_scores
 from allwave_tpu_torch.testing.batches import edge_batch, pair_batch, random_batch
 from allwave_tpu_torch.wfa import dense as TD
+from allwave_tpu_torch.wfa.batch import expand_runs
 from allwave_tpu_torch.wfa.params import resolve_penalties
 
 SCORE_SETS = ["0,5,8,2,24,1", "0,4,6,2", "0,1,1,1"]
+
+
+def _per_base(results):
+    """(score, per-base cigar bytes) of each engine result, its runs
+    expanded."""
+    return [(r[0], expand_runs(*r[1]).tobytes()) for r in results]
 
 
 @pytest.fixture
@@ -209,7 +216,7 @@ def test_main_path_launches_kernels_and_matches_cpu(cuda_device):
     assert TD.forward_launches.count > 1 and TD.traceback_launches.count > 1
     assert TD.forward_launches.widest_k > 128
     cpu = UnifiedAligner(pen, device="cpu").align_pairs(pairs, with_stats=True)
-    assert [(r[0], bytes(r[1])) for r in gpu[0]] == [(r[0], bytes(r[1])) for r in cpu[0]]
+    assert _per_base(gpu[0]) == _per_base(cpu[0])
     np.testing.assert_array_equal(gpu[1], cpu[1])
 
 
@@ -228,9 +235,7 @@ def test_edge_pairs_match_cpu(cuda_device):
         pen = resolve_penalties(parse_scores(scores))
         gpu = UnifiedAligner(pen, device=cuda_device).align_pairs(pairs, with_stats=True)
         cpu = UnifiedAligner(pen, device="cpu").align_pairs(pairs, with_stats=True)
-        assert [(r[0], bytes(r[1])) for r in gpu[0]] == [
-            (r[0], bytes(r[1])) for r in cpu[0]
-        ]
+        assert _per_base(gpu[0]) == _per_base(cpu[0])
         np.testing.assert_array_equal(gpu[1], cpu[1])
 
 
@@ -500,7 +505,7 @@ def test_long_route_launches_kernels_and_matches_cpu(cuda_device):
     assert any(s[2] < s[1] for s in TS.span_launches.shapes)  # narrow replay ran
     cpu = UnifiedAligner(pen, dense_max_len=100, device="cpu",
                          segmented_config=cfg).align_pairs(pairs, with_stats=True)
-    assert [(r[0], bytes(r[1])) for r in gpu[0]] == [(r[0], bytes(r[1])) for r in cpu[0]]
+    assert _per_base(gpu[0]) == _per_base(cpu[0])
     np.testing.assert_array_equal(gpu[1], cpu[1])
 
 
@@ -716,7 +721,7 @@ def test_wavefront_route_launches_kernels_and_matches_cpu(cuda_device, monkeypat
 
     def aligner(device):
         ua = UnifiedAligner(pen, dense_max_len=1000, device=device)
-        ua.wf_segmented = TW.WavefrontSegmentedAligner(pen, TW.WfSegConfig(ckpt_every=64), dense=ua.dense)
+        ua.wf_segmented = TW.WavefrontSegmentedAligner(pen, TW.WfSegConfig(ckpt_every=64), pool=ua.pool)
         return ua
 
     TW.wf_span_launches.reset()
@@ -727,16 +732,15 @@ def test_wavefront_route_launches_kernels_and_matches_cpu(cuda_device, monkeypat
     assert TW.wf_stats.fallbacks == 1
     monkeypatch.setenv("ALLWAVE_WFSEG", "1")
     cpu = aligner("cpu").align_pairs(pairs, with_stats=True, sigma_hint=hint)
-    assert [(r[0], bytes(r[1])) for r in gpu[0]] == [(r[0], bytes(r[1])) for r in cpu[0]]
+    assert _per_base(gpu[0]) == _per_base(cpu[0])
     np.testing.assert_array_equal(gpu[1], cpu[1])
 
 
 @pytest.mark.cuda
 def test_wavefront_engine_runs_expand_to_its_cigars(cuda_device):
-    """The wavefront engine on the card, on 20-40 kb pairs: with
-    as_runs=True each pair's start-to-end runs expand to the per-base
-    cigar it gives under as_runs=False, and their stats are that
-    cigar's."""
+    """The wavefront engine on the card, on 20-40 kb pairs: each pair's
+    start-to-end runs expand to the per-base cigar of the same engine on
+    the CPU, and their stats are that cigar's."""
     from allwave_tpu_torch.core.cigar import batch_cigar_stats
     from allwave_tpu_torch.testing.batches import mutate
     from allwave_tpu_torch.wfa import wf_segmented as TW
@@ -750,14 +754,11 @@ def test_wavefront_engine_runs_expand_to_its_cigars(cuda_device):
         q = rng.choice(bases, L)
         pairs.append((q.tobytes(), mutate(rng, q, div, 3).tobytes()))
         hint.append(int(6 * div * L) + 64)
-    eng = TW.WavefrontSegmentedAligner(pen, device=cuda_device)
-    runs = eng.align_pairs(pairs, sigma_hint=hint, as_runs=True)
-    per_base = eng.align_pairs(pairs, sigma_hint=hint)
+    runs = TW.WavefrontSegmentedAligner(pen, device=cuda_device).align_pairs(pairs, sigma_hint=hint)
+    cpu = TW.WavefrontSegmentedAligner(pen, device="cpu").align_pairs(pairs, sigma_hint=hint)
     assert all(isinstance(r, tuple) and isinstance(r[1], tuple) for r in runs)
-    expanded = [np.repeat(ops, lens.astype(np.int64)) for _, (ops, lens) in runs]
-    assert [(s, c.tobytes()) for (s, _), c in zip(runs, expanded)] == [
-        (s, np.asarray(c, np.uint8).tobytes()) for s, c in per_base
-    ]
+    expanded = [expand_runs(*r[1]) for r in runs]
+    assert [(s, c.tobytes()) for (s, _), c in zip(runs, expanded)] == _per_base(cpu)
     np.testing.assert_array_equal(runs_stats([r[1] for r in runs]), batch_cigar_stats(expanded))
 
 

@@ -112,6 +112,39 @@ def test_cli_wfa_orientation_matches_reference(stranded_fasta):
     assert any(line.split("\t")[4] == "-" for line in lines)
 
 
+def test_iter_and_callback_build_the_same_results(stranded_fasta):
+    """`__iter__` and `for_each_with_callback` build their results in one function:
+    on the stranded fixture under -p none and WFA orientation, in chunks
+    of 7 pairs, they give the same AlignmentResults in the same order,
+    every one carrying runs whose stats are its PAF fields."""
+    from allwave_tpu_torch.core.scores import parse_scores
+    from allwave_tpu_torch.core.types import NoSparsification
+    from allwave_tpu_torch.engine.fasta import read_fasta
+    from allwave_tpu_torch.engine.pipeline import AllPairAligner
+    from allwave_tpu_torch.wfa.batch import expand_runs, runs_stats
+
+    seqs = read_fasta(stranded_fasta)
+
+    def aligner():
+        return AllPairAligner(seqs, parse_scores("0,5,8,2,24,1"), use_mash_orientation=False,
+                              sparsification=NoSparsification(), chunk_size=7)
+
+    pulled = list(aligner())
+    pushed = []
+    aligner().for_each_with_callback(pushed.append)
+
+    def fields(r):
+        return (r.query_idx, r.target_idx, r.query_start, r.query_end, r.target_start,
+                r.target_end, r.is_reverse, r.score, r.num_matches, r.alignment_length,
+                expand_runs(*r.cigar_runs).tobytes())
+
+    assert len(pulled) == 20 and any(r.is_reverse for r in pulled)
+    assert all(r.cigar_runs is not None for r in pulled + pushed)
+    assert [fields(r) for r in pulled] == [fields(r) for r in pushed]
+    paf = [[r.num_matches, r.alignment_length, r.query_end, r.target_end] for r in pulled]
+    np.testing.assert_array_equal(runs_stats([r.cigar_runs for r in pulled]), paf)
+
+
 def test_mash_matrix_matches_reference(fasta):
     assert _run(port_cli, ["-i", fasta, "--mash-matrix"]) == _run(
         ref_cli, ["-i", fasta, "--mash-matrix"]

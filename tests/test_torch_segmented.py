@@ -28,6 +28,7 @@ from allwave_tpu.wfa import dense_engine as JE
 from allwave_tpu.wfa import segmented as JS
 from allwave_tpu.wfa.params import resolve_penalties
 from allwave_tpu_torch.testing.batches import random_batch
+from allwave_tpu_torch.wfa import batch as TB
 from allwave_tpu_torch.wfa import dense as TD
 from allwave_tpu_torch.wfa import dense_engine as TE
 from allwave_tpu_torch.wfa import segmented as TS
@@ -447,7 +448,12 @@ def _pairs(seed, n, L, div, indel=0.0):
 
 
 def _norm(results):
-    return [None if r is None else (int(r[0]), np.asarray(r[1], np.uint8).tobytes()) for r in results]
+    """(score, per-base cigar bytes) of each result, runs expanded: the
+    port's runs may split at segment edges where the reference's do not."""
+    return [None if r is None else
+            (int(r[0]), np.asarray(TB.expand_runs(*r[1]) if isinstance(r[1], tuple) else r[1],
+                                   np.uint8).tobytes())
+            for r in results]
 
 
 @pytest.fixture
@@ -603,14 +609,12 @@ def test_c2_span_engine_matches_port(scores_str, monkeypatch):
     assert _norm(port.align_pairs(pairs)) == _norm(c2.align_pairs(pairs))
 
 
-@pytest.mark.parametrize("as_runs", [False, True])
-def test_unified_long_route_matches_reference(as_runs):
+@pytest.mark.parametrize("ref_runs", [False, True])
+def test_unified_long_route_matches_reference(ref_runs):
     """UnifiedAligner with dense_max_len lowered: the long pairs take the
     segmented engine in both packages; short ones the dense engine.
-    Every result, long or short, is runs under as_runs=True and a
-    per-base array under False; with runs no per-base array is built."""
-    from allwave_tpu_torch.utils.telemetry import counters
-
+    Every port result, long or short, is runs; expanded, they equal the
+    reference's per-base arrays and, with ref_runs, its runs expanded."""
     pen = _pen("0,5,8,2,24,1")
     pairs = _pairs(71, 2, 150, 0.04) + _pairs(72, 2, 60, 0.04)
     cfg = dict(ckpt_every=64)
@@ -619,23 +623,11 @@ def test_unified_long_route_matches_reference(as_runs):
     t = TE.UnifiedAligner(pen, dense_max_len=100, device="cpu",
                           segmented_config=TS.SegmentedConfig(**cfg))
     hint = [60, 60, 20, 20]
-    rj, sj = j.align_pairs(pairs, with_stats=True, sigma_hint=hint, as_runs=as_runs)
-    counters.reset()
-    rt, st = t.align_pairs(pairs, with_stats=True, sigma_hint=hint, as_runs=as_runs)
-    expansions = counters.snapshot()["expansions"]
-
-    def norm(rs):
-        out = []
-        for s, c in rs:
-            if isinstance(c, tuple):
-                c = np.repeat(np.asarray(c[0], np.uint8), np.asarray(c[1], np.int64))
-            out.append((int(s), np.asarray(c, np.uint8).tobytes()))
-        return out
-
-    assert norm(rt) == norm(rj)
+    rj, sj = j.align_pairs(pairs, with_stats=True, sigma_hint=hint, as_runs=ref_runs)
+    rt, st = t.align_pairs(pairs, with_stats=True, sigma_hint=hint)
+    assert _norm(rt) == _norm(rj)
     np.testing.assert_array_equal(st, sj)
-    assert [isinstance(c, tuple) for _, c in rt] == [as_runs] * len(rt)
-    assert expansions == 0 if as_runs else expansions >= len(rt)
+    assert all(isinstance(c, tuple) for _, c in rt)
 
 
 def test_all_pair_aligner_long_route_matches_reference(monkeypatch, tmp_path):
@@ -680,7 +672,6 @@ def test_cli_long_route_hands_runs_to_the_writer(monkeypatch, tmp_path):
     from allwave_tpu.testing.synth import MutationConfig, make_test_case
     from allwave_tpu_torch import cli
     from allwave_tpu_torch.engine.pipeline import AllPairAligner
-    from allwave_tpu_torch.utils.telemetry import counters
 
     for mod, seg in ((JE, JS), (TE, TS)):
         init = mod.UnifiedAligner.__init__
@@ -696,19 +687,24 @@ def test_cli_long_route_hands_runs_to_the_writer(monkeypatch, tmp_path):
 
     emit = AllPairAligner.__dict__["_emit_chunk"].__func__
     kinds = []
+    carried = []
 
     def spy(callback, chunk, revs, aligned, stats):
         kinds.extend(type(r[1]) for r in aligned if r is not None)
-        emit(callback, chunk, revs, aligned, stats)
+
+        def cb(result):
+            carried.append(result.cigar_runs is not None)
+            callback(result)
+
+        emit(cb, chunk, revs, aligned, stats)
 
     monkeypatch.setattr(AllPairAligner, "_emit_chunk", staticmethod(spy))
     monkeypatch.setenv("ALLWAVE_PLATFORM", "cpu")
     paf = tmp_path / "port.paf"
-    counters.reset()
     rc = cli.main(["-i", str(fasta), "-o", str(paf), "-s", "0,5,8,2,24,1", "-p", "none",
                    "--no-progress"])
-    assert rc == 0 and counters.snapshot()["expansions"] == 0
-    assert kinds == [tuple] * 12
+    # no record failed, and every one reaches the writer carrying runs
+    assert rc == 0 and kinds == [tuple] * 12 and carried == [True] * 12
 
     seqs = R.read_fasta(str(fasta))
     ref = []
@@ -775,7 +771,7 @@ def test_expand_runs_to_cigar_matches_reference():
     ops = rng.choice(np.frombuffer(b"MXID", np.uint8), 9)
     lens = rng.randint(0, 256, 9).astype(np.int64)
     for n in (0, 1, 5, 9):
-        np.testing.assert_array_equal(TS.expand_runs_to_cigar(ops, lens, n), expand_runs_to_cigar(ops, lens, n))
+        np.testing.assert_array_equal(TB.expand_runs_to_cigar(ops, lens, n), expand_runs_to_cigar(ops, lens, n))
 
 
 @pytest.mark.parametrize("sigma", [0, 900, 16000, 40000])
@@ -783,8 +779,8 @@ def test_segmented_band_rules_match_reference(sigma):
     pen = _pen("0,5,8,2,24,1")
     j = JS.SegmentedDenseAligner(pen, JS.SegmentedConfig(impl="xla"))
     t = TS.SegmentedDenseAligner(pen, device="cpu")
-    assert t.K_LADDER == j.K_LADDER and t.K_LADDER[-1] == 24576
-    assert t._k_for_score(sigma, 7) == j._k_for_score(sigma, 7)
+    assert t.ladder.rungs == j.K_LADDER and t.ladder.rungs[-1] == t.ladder.k_max == 24576
+    assert t.ladder.for_score(sigma, 7) == j._k_for_score(sigma, 7)
     assert t._run_cap(1 << 17) == j._run_cap(1 << 17) == 4096
     for k in (1, 128, 129, 16385, 30000):
-        assert t._round_k(k) == j._round_k(k)
+        assert t.ladder.round(k) == j._round_k(k)

@@ -210,6 +210,7 @@ def test_imports_with_jax_blocked():
         "allwave_tpu_torch.engine.pipeline",
         "allwave_tpu_torch.wfa.dense_engine",
         "allwave_tpu_torch.wfa.engine",
+        "allwave_tpu_torch.wfa.rounds",
         "allwave_tpu_torch.wfa.batch",
         "allwave_tpu_torch.wfa.cuda_build",
         "allwave_tpu_torch.wfa.wf_segmented",

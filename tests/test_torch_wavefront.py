@@ -313,7 +313,11 @@ def _pairs(seed, specs):
 
 
 def _norm(results):
-    return [r if r is None or isinstance(r, str) else (int(r[0]), np.asarray(r[1], np.uint8).tobytes())
+    """(score, per-base cigar bytes) of each result, runs expanded; None
+    and the fallback sentinel as they are."""
+    return [r if r is None or isinstance(r, str) else
+            (int(r[0]), np.asarray(TB.expand_runs(*r[1]) if isinstance(r[1], tuple) else r[1],
+                                   np.uint8).tobytes())
             for r in results]
 
 
@@ -348,11 +352,12 @@ def test_band_and_cap_rules_match_reference(hint_lo, hint_hi, step):
     pen = _pen("0,5,8,2,24,1")
     ref = W.WavefrontSegmentedAligner(pen, impl="xla")
     port = TW.WavefrontSegmentedAligner(pen, device="cpu")
-    assert port.K_LADDER == ref.K_LADDER
+    assert port.ladder.rungs == ref.K_LADDER and port.ladder.k_max is None
     for hint in range(hint_lo, hint_hi, step):
         assert port._quantize_hint(hint) == ref._quantize_hint(hint)
         assert port._s_cap_for_hint(hint) == ref._s_cap_for_hint(hint)
-        assert port._k_for_score(hint, hint % 97) == ref._k_for_score(hint, hint % 97)
+        assert port.ladder.for_score(hint, hint % 97) == ref._k_for_score(hint, hint % 97)
+        assert port.ladder.round(hint) == ref._round_k(hint)
     scores = np.array([3, 900, 2700, 17])
     done = np.array([True, False, True, True])
     assert port._run_cap(scores, done) == ref._run_cap(scores, done) == 16384
@@ -373,13 +378,14 @@ def _wfseg_env(monkeypatch):
         monkeypatch.setenv(k, v)
 
 
-@pytest.mark.parametrize("as_runs", [False, True])
-def test_unified_wavefront_route_matches_reference(monkeypatch, as_runs):
+@pytest.mark.parametrize("ref_runs", [False, True])
+def test_unified_wavefront_route_matches_reference(monkeypatch, ref_runs):
     """UnifiedAligner with ALLWAVE_WFSEG=1 and dense_max_len lowered:
     the long pairs go to the wavefront engine, those past its k_max fall
     back to the segmented engine, short ones take the dense engine; the
     results and stats equal the reference's (Pallas route, interpret
-    mode)."""
+    mode): the port's runs, expanded, against the reference's per-base
+    arrays and, with ref_runs, its runs expanded."""
     from allwave_tpu_torch.wfa import dense_engine as TE
     from allwave_tpu_torch.wfa import segmented as TS
 
@@ -389,24 +395,51 @@ def test_unified_wavefront_route_matches_reference(monkeypatch, as_runs):
     hint = [60, 400, 20, 30]
     wf_cfg = dict(ckpt_every=32, k_max=128)
     rj, sj = _reference_unified(pen, 100, wf_cfg).align_pairs(
-        pairs, with_stats=True, sigma_hint=hint, as_runs=as_runs)
+        pairs, with_stats=True, sigma_hint=hint, as_runs=ref_runs)
     TW.wf_stats.reset()
     ua = TE.UnifiedAligner(pen, dense_max_len=100, device="cpu",
                            segmented_config=TS.SegmentedConfig(ckpt_every=64))
-    ua.wf_segmented = TW.WavefrontSegmentedAligner(pen, TW.WfSegConfig(**wf_cfg), dense=ua.dense)
-    rt, st = ua.align_pairs(pairs, with_stats=True, sigma_hint=hint, as_runs=as_runs)
-
-    def norm(rs):
-        out = []
-        for s, c in rs:
-            if isinstance(c, tuple):
-                c = np.repeat(np.asarray(c[0], np.uint8), np.asarray(c[1], np.int64))
-            out.append((int(s), np.asarray(c, np.uint8).tobytes()))
-        return out
-
-    assert norm(rt) == norm(rj)
+    ua.wf_segmented = TW.WavefrontSegmentedAligner(pen, TW.WfSegConfig(**wf_cfg), pool=ua.pool)
+    rt, st = ua.align_pairs(pairs, with_stats=True, sigma_hint=hint)
+    assert all(isinstance(c, tuple) for _, c in rt)
+    assert _norm(rt) == _norm(rj)
     np.testing.assert_array_equal(st, sj)
     assert TW.wf_stats.fallbacks == 1 and len(TW.wf_stats.rounds) >= 1
+
+
+def test_router_engines_share_one_pool(monkeypatch):
+    """A UnifiedAligner's three engines hold its one sequence pool, and a
+    call mixing short and long pairs, some handed back by the wavefront
+    engine to the segmented engine at the same l_pad, uploads each
+    (pool list, l_pad) once; a second call on the same pool list
+    uploads nothing."""
+    from allwave_tpu_torch.wfa import dense_engine as TE
+    from allwave_tpu_torch.wfa import rounds as TR
+
+    ua = TE.UnifiedAligner(_pen("0,5,8,2,24,1"), dense_max_len=100, device="cpu")
+    assert ua.dense.pool is ua.pool and ua.segmented.pool is ua.pool
+    assert ua.wf_segmented.pool is ua.pool and ua.pool.device == ua.device
+    uploads = []
+    upload = TR.SequencePool._upload
+
+    def spy(self, pool_seqs, l_pad):
+        uploads.append((id(pool_seqs), l_pad))
+        return upload(self, pool_seqs, l_pad)
+
+    monkeypatch.setattr(TR.SequencePool, "_upload", spy)
+    monkeypatch.setenv("ALLWAVE_WFSEG", "1")
+    ua.wf_segmented = TW.WavefrontSegmentedAligner(
+        ua.pen, TW.WfSegConfig(ckpt_every=32, k_max=128), pool=ua.pool)
+    # long pairs of 257-512 bases: both long engines pad them to 512
+    pairs = _pairs(19, [(280, 0.03, 1), (300, 0.2, 3), (60, 0.04, 1), (290, 0.01, 1)])
+    pool_seqs, qidx, tidx = TR.pool_pairs(pairs)
+    hint = [60, 400, 20, 30]
+    TW.wf_stats.reset()
+    first = ua.align_pairs_indexed(pool_seqs, qidx, tidx, sigma_hint=hint)
+    assert TW.wf_stats.fallbacks == 1 and len(TW.wf_stats.rounds) >= 1
+    assert sorted(uploads) == [(id(pool_seqs), 64), (id(pool_seqs), 512)]
+    again = ua.align_pairs_indexed(pool_seqs, qidx, tidx, sigma_hint=hint)
+    assert len(uploads) == 2 and _norm(again) == _norm(first)
 
 
 def test_all_pair_aligner_wavefront_route_matches_reference(monkeypatch, tmp_path):
@@ -431,7 +464,7 @@ def test_all_pair_aligner_wavefront_route_matches_reference(monkeypatch, tmp_pat
     def low_t(self, pen, *a, **kw):
         kw["dense_max_len"] = 200
         init_t(self, pen, *a, **kw)
-        self.wf_segmented = TW.WavefrontSegmentedAligner(pen, TW.WfSegConfig(**wf_cfg), dense=self.dense)
+        self.wf_segmented = TW.WavefrontSegmentedAligner(pen, TW.WfSegConfig(**wf_cfg), pool=self.pool)
 
     monkeypatch.setattr(JE.UnifiedAligner, "__init__", low_j)
     monkeypatch.setattr(TE.UnifiedAligner, "__init__", low_t)
