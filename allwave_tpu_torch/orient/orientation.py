@@ -15,7 +15,9 @@ results, O(n) instead of O(pairs) sketching).
 
 Each route of `orient_batch` and `distance_batch` first builds every
 stranded set it reads in one `orient.sketch` span (counted in the
-`sketches` counter), then runs its decisions and distance hints in one
+`sketches` counter; on a CUDA device in one launch of
+csrc/minhash_sketch.cu, sketch/device_sketch.py, counted in
+`sketches_card` too), then runs its decisions and distance hints in one
 `orient.decide` span (utils.telemetry).
 """
 
@@ -28,6 +30,7 @@ import torch
 
 from ..core.types import Sequence
 from ..device import resolve_device
+from ..sketch.device_sketch import stranded_sets
 from ..sketch.membership import (
     ORIENT_DEVICE_MIN_N,
     OverBudget,
@@ -124,7 +127,10 @@ class OrientationIndex:
         set the route reads is built, in one `orient.sketch` span: the
         forward sets of all the rows and the reverse sets of the queries
         (of all the rows with threads > 1, as `_ensure_sets` builds
-        them)."""
+        them). On a CUDA device one kernel launch builds them all
+        (`stranded_sets`, counted in `sketches_card`), so `_ensure_sets`
+        then finds none missing; on the CPU the host builds them one at
+        a time."""
         every = np.arange(len(self.sequences), dtype=np.int64)
         q = every if q_idx is None else np.unique(np.asarray(q_idx, dtype=np.int64))
         rows = every if t_idx is None else np.union1d(q, np.asarray(t_idx, dtype=np.int64))
@@ -132,12 +138,22 @@ class OrientationIndex:
         rev = [i for i in (rows if self.threads > 1 else q).tolist() if self._rev_sets[i] is None]
         if fwd or rev:
             with counters.span("orient.sketch"):
-                if self.threads > 1:
-                    self._ensure_sets(rows)
-                for i in fwd:
-                    self._fwd_set(i)
-                for i in rev:
-                    self._rev_set(i)
+                if self.device.type == "cuda":
+                    sets = stranded_sets([s.seq for s in self.sequences], fwd + rev,
+                                         [False] * len(fwd) + [True] * len(rev),
+                                         self.k, self.sketch_size, self.device)
+                    for i, s in zip(fwd, sets):
+                        self._fwd_sets[i] = s
+                    for i, s in zip(rev, sets[len(fwd):]):
+                        self._rev_sets[i] = s
+                    counters.add(sketches_card=len(fwd) + len(rev))
+                else:
+                    if self.threads > 1:
+                        self._ensure_sets(rows)
+                    for i in fwd:
+                        self._fwd_set(i)
+                    for i in rev:
+                        self._rev_set(i)
             counters.add(sketches=len(fwd) + len(rev))
         return counters.span("orient.decide")
 

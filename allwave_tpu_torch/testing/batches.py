@@ -1,9 +1,13 @@
 """Seeded random pair batches for holding the kernels against their
-plain versions and the JAX reference."""
+plain versions and the JAX reference, and the strands that hold
+orientation's sketch kernel to the host's sets."""
 
 from __future__ import annotations
 
 import numpy as np
+
+from ..core.types import Sequence
+from ..orient.orientation import OrientationIndex
 
 
 def random_batch(rng, B: int, L: int, l_pad: int, div: float = 0.05, min_len=None):
@@ -139,3 +143,51 @@ def pair_batch(pairs, l_pad: int):
     qlens = np.array([len(q) for q, _ in pairs], np.int32)
     tlens = np.array([len(t) for _, t in pairs], np.int32)
     return qs, ts, qlens, tlens
+
+
+def sketch_strands(k: int):
+    """Strands that break a wrong stranded MinHash set: lengths 0, k - 1,
+    k, 300, 2,000, 5,000 and 100,000; lowercase bases, N, IUPAC codes
+    and other bytes; fewer valid windows than a sketch, short and long
+    (12 kb of N around a few islands of bases, as an assembly's gaps
+    leave them); poly-A and short tandem repeats, short and long, whose
+    equal hashes straddle the cut."""
+    rng = np.random.RandomState(11)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+
+    def rand(n):
+        return rng.choice(acgt, n).tobytes()
+
+    seqs = [b"", rand(k - 1), rand(k)] + [rand(n) for n in (300, 2000, 5000, 100_000)]
+    soft = np.frombuffer(rand(2000), np.uint8).copy()
+    soft[500:1500] |= 0x20  # soft-masked: lowercase hashes differ
+    seqs.append(soft.tobytes())
+    noisy = np.frombuffer(rand(5000), np.uint8).copy()
+    junk = np.frombuffer(b"NnRYKMSWBDHV-*.\x00\xff acgtu", np.uint8)
+    at = rng.choice(noisy.size, 120, replace=False)
+    noisy[at] = rng.choice(junk, at.size)
+    seqs.append(noisy.tobytes())
+    sparse = np.frombuffer(rand(3000), np.uint8).copy()
+    sparse[::25] = ord("N")  # 10 windows of 15 between each N
+    seqs.append(sparse.tobytes())
+    seqs += [b"A" * 3000, b"A" * 10_000, b"CA" * 1500, b"ATTG" * 2500, b"GATA" * 30]
+    mixed = bytearray(rand(6000))
+    mixed[2000:3200] = b"TTAGGG" * 200  # a repeat tract amid random bases
+    seqs.append(bytes(mixed))
+    gappy = bytearray(b"N" * 12_000)  # 21 valid windows: 10, 10 (lowercase) and 1
+    gappy[1000 : 1009 + k] = rand(k + 9)
+    gappy[5000 : 5009 + k] = rand(k + 9).lower()
+    gappy[9000 : 9000 + k] = rand(k)
+    lone = bytearray(b"N" * 12_000)  # one valid window
+    lone[7000 : 7000 + k] = rand(k)
+    seqs += [bytes(gappy), bytes(lone)]
+    return seqs
+
+
+def host_stranded_sets(seqs, seq_idx, reverse, k: int, sketch_size: int):
+    """The plain version of `sketch.device_sketch.stranded_sets`: each
+    job's set (`seqs[seq_idx[j]]`, reverse complemented where
+    `reverse[j]`) as a CPU `OrientationIndex` builds it, one at a time."""
+    idx = OrientationIndex([Sequence(f"s{i}", s) for i, s in enumerate(seqs)], k, sketch_size,
+                           device="cpu")
+    return [idx._rev_set(i) if r else idx._fwd_set(i) for i, r in zip(seq_idx, reverse)]

@@ -11,7 +11,8 @@ Counters, added where the work happens:
   escalations, and the wavefront engine's hand-backs to the segmented
   engine);
 * `sketches`: stranded MinHash sets orientation builds (a sequence's
-  forward set and its reverse complement's are two);
+  forward set and its reverse complement's are two), on either side;
+* `sketches_card`: those of them the card built (csrc/minhash_sketch.cu);
 * `paf_batches`: the CLI writer's batch passes over its queued records'
   CIGAR text (`engine/paf_text.py`), one each;
 * `paf_batched`: the records whose CIGAR text a batch pass made.
@@ -118,6 +119,7 @@ class EngineCounters:
         self.syncs = 0
         self.reruns = 0
         self.sketches = 0
+        self.sketches_card = 0
         self.paf_batches = 0
         self.paf_batched = 0
         self._spans: Dict[str, List[int]] = {}
@@ -130,7 +132,7 @@ class EngineCounters:
         self.chunk: Optional[int] = None
 
     def add(self, cells: int = 0, dispatches: int = 0, syncs: int = 0, reruns: int = 0,
-            sketches: int = 0, paf_batches: int = 0,
+            sketches: int = 0, sketches_card: int = 0, paf_batches: int = 0,
             paf_batched: int = 0) -> None:
         with self._lock:
             self.cells += cells
@@ -138,6 +140,7 @@ class EngineCounters:
             self.syncs += syncs
             self.reruns += reruns
             self.sketches += sketches
+            self.sketches_card += sketches_card
             self.paf_batches += paf_batches
             self.paf_batched += paf_batched
 
@@ -165,6 +168,7 @@ class EngineCounters:
                 "syncs": self.syncs,
                 "reruns": self.reruns,
                 "sketches": self.sketches,
+                "sketches_card": self.sketches_card,
                 "paf_batches": self.paf_batches,
                 "paf_batched": self.paf_batched,
                 "spans": {
@@ -180,6 +184,7 @@ class EngineCounters:
             self.syncs = 0
             self.reruns = 0
             self.sketches = 0
+            self.sketches_card = 0
             self.paf_batches = 0
             self.paf_batched = 0
             self._spans.clear()

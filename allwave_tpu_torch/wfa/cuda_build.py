@@ -94,6 +94,9 @@ SIGNATURES = {
         "allwave_wf_batch_tier": ([_I] * 9, _I),
         "allwave_wf_batch_traceback": ([_P] * 8 + [_I] * 10 + [_P] * 6, _I),
     },
+    "minhash_sketch": {
+        "allwave_minhash_sketch": ([_P] * 6 + [_I] * 4 + [_P] * 3, _I),
+    },
     # the probes of allwave_tpu_torch/probes (no production path)
     "probe_forward": {
         "allwave_probe_forward": ([_P] * 4 + [_I] * 10 + [_P] * 4, _I),

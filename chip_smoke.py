@@ -5,7 +5,7 @@ Run from the repository root on a machine with one NVIDIA Hopper GPU:
 
     python3 chip_smoke.py
 
-It builds the eleven CUDA kernel libraries from the sources in this
+It builds the twelve CUDA kernel libraries from the sources in this
 checkout (one nvcc per source, all at once; phase 1 prints every dense
 forward, traceback and span kernel's registers and spill bytes from
 ptxas, fails if a register-band forward or replay kernel or the
@@ -128,7 +128,18 @@ no dependent chain), drives the port's three engines and runs the probes:
   walker's round trips; `discover_scores` over 5b's 56 oriented pairs
   against phase 14's long-path scores, and `align_pairs` over them
   against its CIGARs; at 5b's widest history batch the forward beside
-  the global design, equal and faster.
+  the global design, equal and faster;
+* orientation's sketch kernel (phase 22, csrc/minhash_sketch.cu,
+  allwave_tpu_torch/sketch/device_sketch.py): every stranded MinHash set
+  of a batch built to break it (testing.batches.sketch_strands: lengths
+  0 to 100 kb, lowercase, N, IUPAC and other bytes, 12 kb of N around a
+  few valid windows, poly-A and tandem repeats) at three (k, sketch
+  size) equal to the plain version's (a CPU index's host loop), in one
+  launch each; at giant500_2kb.giant's route (both
+  strands of 500 x 2 kb) and hap100kb.lowdiv's (of 10 x 100 kb) the sets
+  equal again, and the kernel alone, the wrapper end to end and the plain
+  version timed beside the kernel's bound; on the main path, phase 18's
+  fresh CLI runs each build their sets in one launch.
 
 Each wrapper counts its launches by shape; every count is set to 0 just
 before a path is driven and read just after. Every kernel is held to its
@@ -136,7 +147,7 @@ plain version with tolerance 0: scores, certificates, band states, plane
 bytes, walk states and run buffers must be equal, because the tie-break
 contract (docs/TIEBREAK.md) leaves no room. Every phase prints its result
 and its seconds on its own line, and the smoke's total seconds follow
-phase 21; any failure exits non-zero. The last
+phase 22; any failure exits non-zero. The last
 three lines are the card's name and power limit, a JSON object with one
 entry per kernel (its time beside its plain version's and its bound: the
 larger of its least int32 operations over the card's int32 rate and its
@@ -1193,11 +1204,15 @@ import json, sys, time
 sys.path.insert(0, sys.argv[1])
 t0 = time.perf_counter()
 from allwave_tpu_torch import cli
-from allwave_tpu_torch.sketch import membership as MB
+from allwave_tpu_torch.sketch import device_sketch as DS, membership as MB
+from allwave_tpu_torch.utils.telemetry import counters
 t1 = time.perf_counter()
 rc = cli.main(sys.argv[2:])
+snap = counters.snapshot()
 print(json.dumps({"rc": rc, "import_s": t1 - t0, "cli_s": time.perf_counter() - t1,
-                  "orientation": MB.orient_routes.counts, "counts": MB.count_routes.counts}))
+                  "orientation": MB.orient_routes.counts, "counts": MB.count_routes.counts,
+                  "sketch_launches": DS.sketch_launches.count, "sketches": snap["sketches"],
+                  "sketches_card": snap["sketches_card"]}))
 """
 
 
@@ -1230,9 +1245,11 @@ def phase18(pen, giant, mixed, synth512):
     run takes (only the 512 set's full orientation matrix is at the
     device threshold; 4_tree_mixed's 256 MinHash sets and 3_giant099's
     256 orientation sets are below theirs), no failed pair, every
-    record's CIGAR replays; then a warm pipeline run of each bench
-    config (its results replayed, an oracle sample's scores), and an
-    oracle sample of the 512 set's records."""
+    record's CIGAR replays, and the run builds every stranded set it
+    reads in one launch of the sketch kernel (its one `orient.sketch`
+    route; `sketches_card` equal to `sketches`); then a warm pipeline
+    run of each bench config (its results replayed, an oracle sample's
+    scores), and an oracle sample of the 512 set's records."""
     from allwave_tpu_torch.engine.fasta import write_fasta
     from allwave_tpu_torch.sparsify.pairs import parse_sparsification
 
@@ -1258,6 +1275,10 @@ def phase18(pen, giant, mixed, synth512):
         routes = {"orientation": fresh["orientation"], "counts": fresh["counts"]}
         check(routes == want, f"phase 18 {name}: a fresh process took routes {routes}, "
               f"not {want}")
+        sketch = {k: fresh[k] for k in ("sketch_launches", "sketches", "sketches_card")}
+        check(sketch["sketch_launches"] == 1
+              and sketch["sketches_card"] == sketch["sketches"] > 0,
+              f"phase 18 {name}: the CLI's sets were not built in one kernel launch: {sketch}")
         recs = _paf_records(paf)
         t0 = time.perf_counter()
         empty = validate_paf(recs, seqs)
@@ -1267,7 +1288,7 @@ def phase18(pen, giant, mixed, synth512):
                   f"phase 18 {name}: {len(recs)} records")
             os.remove(paf)  # tens of MB
         row = {"config": name, "p": spec, "n": len(seqs), "pairs": len(recs), "failed": empty,
-               "fresh_routes": routes, "fresh_cli_s": fresh["cli_s"],
+               "fresh_routes": routes, "fresh_sketch": sketch, "fresh_cli_s": fresh["cli_s"],
                "fresh_import_s": fresh["import_s"], "fresh_process_s": process_s}
         if name.startswith("synthetic"):
             oracle_sample_paf(recs, seqs, pen, n_sample=2, seed=18)
@@ -1731,6 +1752,95 @@ def phase21(dev, pen, seqs, pool5b, qi5b, ti5b, wf_out):
     widest5, _ = wf_batch_versus(dev, pen, batch5, cap5, 2)
     print("phase 21 5b widest batch: " + json.dumps(widest5), flush=True)
     return {"kernels": cases, "headline": head, "timing": timing, "5b": p5, "5b_widest": widest5}
+
+
+def sketch_route(n, length, div, seed):
+    """n sequences of `length` bp from one ancestor at `div` SNPs, every
+    other one reverse complemented (the benchmark's gene and haplotype
+    sets), and the jobs of a route over both strands of all of them."""
+    import numpy as np
+
+    from allwave_tpu_torch.orient.orientation import reverse_complement
+
+    rng = np.random.RandomState(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    base = rng.choice(acgt, length)
+    seqs = []
+    for i in range(n):
+        a = base.copy()
+        mut = rng.rand(length) < div
+        a[mut] = rng.choice(acgt, int(mut.sum()))
+        seqs.append(reverse_complement(a.tobytes()) if i % 2 else a.tobytes())
+    return seqs, np.concatenate([np.arange(n), np.arange(n)]), np.arange(2 * n) >= n
+
+
+def phase22(dev):
+    """Phase 22: orientation's sketch kernel (csrc/minhash_sketch.cu,
+    sketch/device_sketch.py) at giant500_2kb.giant's route (both strands
+    of 500 x 2 kb: 1,000 sets in one launch) and hap100kb.lowdiv's (both
+    strands of 10 x 100 kb: 20 sets), and on its card test's adversarial
+    batch: every set equal to the plain version's (a CPU index's host
+    loop, `testing.batches.host_stranded_sets`). At each route: the
+    kernel alone (CUDA events over queued launches), the wrapper end to
+    end (host clock, median of 5 warm calls: what `orient.sketch` pays),
+    the plain version (host clock) and the bound
+    (HASH_OPS_PER_WINDOW int32 operations a window, or the bytes: the
+    sequences in, the sets and sizes out). Its launches are its own
+    checks' and timings', counted apart from the main path's."""
+    import numpy as np
+
+    from allwave_tpu_torch.orient.orientation import (
+        ORIENTATION_KMER_SIZE as K,
+        ORIENTATION_SKETCH_SIZE as S,
+    )
+    from allwave_tpu_torch.probes import runner as PR
+    from allwave_tpu_torch.sketch import device_sketch as DS
+    from allwave_tpu_torch.testing.batches import host_stranded_sets, sketch_strands
+
+    ops_s = PR.int32_ops_s(dev)
+    DS.sketch_launches.reset()
+    rows = []
+    for k, size in ((K, S), (K, 64), (21, S)):
+        seqs = sketch_strands(k)
+        n = len(seqs)
+        seq_idx, reverse = np.concatenate([np.arange(n), np.arange(n)]), np.arange(2 * n) >= n
+        got = DS.stranded_sets(seqs, seq_idx, reverse, k, size, dev)
+        want = host_stranded_sets(seqs, seq_idx, reverse, k, size)
+        check(all(np.array_equal(g, w) for g, w in zip(got, want)),
+              f"phase 22: a set of the adversarial batch differs (k {k}, sketch {size})")
+        rows.append({"route": "adversarial", "k": k, "sketch_size": size, "sets": len(got),
+                     "equal": True})
+    for name, n, length, div, seed in (("giant500", 500, 2000, 0.02, 31),
+                                       ("lowdiv", 10, 100_000, 0.0025, 32)):
+        seqs, seq_idx, reverse = sketch_route(n, length, div, seed)
+        t0 = time.perf_counter()
+        got = DS.stranded_sets(seqs, seq_idx, reverse, K, S, dev)
+        first_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        want = host_stranded_sets(seqs, seq_idx, reverse, K, S)
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        check(all(np.array_equal(g, w) for g, w in zip(got, want)),
+              f"phase 22: a set of {name}'s route differs from the plain version's")
+        whole = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            DS.stranded_sets(seqs, seq_idx, reverse, K, S, dev)
+            whole.append(1e3 * (time.perf_counter() - t0))
+        job = DS.upload(seqs, seq_idx, reverse, K, S, dev)
+        kernel_ms = time_queued_ms(lambda: DS.launch(job), 20)
+        windows = int(job.plan.windows.sum())
+        nbytes = sum(len(x) for x in seqs) + 8 * (sum(g.size for g in got) + len(got))
+        bound_ms, bound_by = PR.bound(windows * DS.HASH_OPS_PER_WINDOW, nbytes, ops_s)
+        rows.append({"route": name, "sets": len(got), "windows": windows, "cap": job.plan.cap,
+                     "long_strands": int((job.plan.windows > job.plan.cap).sum()),
+                     "set_sizes": [int(min(g.size for g in got)), int(max(g.size for g in got))],
+                     "ms": kernel_ms, "wrapper_ms": float(np.median(whole)),
+                     "first_call_ms": first_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "share": bound_ms / kernel_ms})
+    for r in rows:
+        print("phase 22 sketch: " + json.dumps(r), flush=True)
+    return {"rows": rows, "launches": DS.sketch_launches.count,
+            "shapes": {str(k): v for k, v in DS.sketch_launches.shapes.items()}}
 
 
 def main() -> int:
@@ -2648,6 +2758,11 @@ def main() -> int:
     # -- phase 21: the batched wavefront engine and its kernels ----------
     report["wf_batch"] = wfb = phase21(dev, pen, seqs, pool5b, qi5b, ti5b, wf_out)
     stamp(21)
+    # -- phase 22: orientation's sketch kernel ------------------------------
+    report["sketch"] = sk = phase22(dev)
+    sk_giant, sk_low = (next(r for r in sk["rows"] if r["route"] == name)
+                        for name in ("giant500", "lowdiv"))
+    stamp(22)
     total_s = time.perf_counter() - t_start
     print(f"smoke total seconds: {total_s:.1f}; phases 17-19: "
           f"{sum(phase_s[k] for k in ('17', '18', '19')):.1f} s", flush=True)
@@ -2959,6 +3074,18 @@ def main() -> int:
             "ms": max(wt["traceback_ms"]), "plain_ms": wt["traceback_plain_ms"], **wfb_tb_bound,
             "thread_ms": wt["traceback_thread_ms"], "design": "warp a pair",
             "shape": [wt["B"], wt["K"], wt["s_cap"], wt["run_cap"]],
+        },
+        {
+            "name": "minhash_sketch", "route": "cuda",
+            "source": "allwave_tpu_torch/csrc/minhash_sketch.cu",
+            "replaces": None,  # the JAX package sketches on the host (sketch/minhash.py)
+            # the main path's: phase 18's fresh CLI runs, one launch each
+            "launches": sum(r["fresh_sketch"]["sketch_launches"] for r in report["configs_3_4"]),
+            "max_abs_err": 0,  # phase 22 holds every set equal to the plain version's
+            **{k: sk_giant[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "wrapper_ms")},
+            "library_ms": None, "shape": [sk_giant["sets"], sk_giant["windows"], sk_giant["cap"]],
+            "at_lowdiv": {k: sk_low[k] for k in ("ms", "plain_ms", "bound_ms", "wrapper_ms",
+                                                 "sets", "windows", "cap")},
         },
     ]
     with open(os.path.join(OUT_DIR, "report.json"), "w") as f:

@@ -18,6 +18,7 @@ from allwave_tpu_torch.core.types import Sequence as TSeq
 from allwave_tpu_torch.orient import orientation as TO
 from allwave_tpu_torch.sketch import membership
 from allwave_tpu_torch.sketch import minhash as TM
+from allwave_tpu_torch.testing.batches import host_stranded_sets
 from allwave_tpu_torch.testing.synth import MutationConfig, make_test_case
 
 
@@ -125,6 +126,9 @@ def test_over_budget_takes_the_native_route(monkeypatch):
         raise AssertionError("the device body ran")
 
     monkeypatch.setattr(TO, "_decide_device", unreachable)
+    # a CUDA index builds its sets with the sketch kernel: here the
+    # host's sets instead
+    monkeypatch.setattr(TO, "stranded_sets", lambda *a: host_stranded_sets(*a[:-1]))
     monkeypatch.setattr(TO, "ORIENT_DEVICE_MIN_N", 2)
     monkeypatch.setattr(TO.OrientationIndex, "DEVICE_MEMBERSHIP_MAX", 64)
     idx = TO.OrientationIndex(seqs, device="cpu")
@@ -162,11 +166,13 @@ def test_gates_stay_shut_on_the_cpu(monkeypatch):
 def test_gates_open_at_their_thresholds_on_cuda(monkeypatch, n, route):
     """On a CUDA device each gate opens at its threshold, whatever ran
     before in the process. The device type is CUDA's while the device
-    bodies run on the CPU, so the routes give the NumPy paths'
-    decisions and counts."""
+    bodies run on the CPU (the host's sets stand in for the sketch
+    kernel's), so the routes give the NumPy paths' decisions and
+    counts."""
     decide, counts = TO._decide_device, TM.membership_counts
     cpu = torch.device("cpu")
     monkeypatch.setattr(TO, "_decide_device", lambda *a: decide(*a[:-1], cpu))
+    monkeypatch.setattr(TO, "stranded_sets", lambda *a: host_stranded_sets(*a[:-1]))
     monkeypatch.setattr(TM, "membership_counts", lambda *a: counts(*a[:-1], cpu))
     monkeypatch.setattr(TM, "resolve_device", lambda: torch.device("cuda"))
     monkeypatch.setattr(TO, "ORIENT_DEVICE_MIN_N", 10)

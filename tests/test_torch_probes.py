@@ -396,7 +396,7 @@ def test_probes_import_without_jax():
         "import sys; sys.modules['jax'] = None\n"
         "import allwave_tpu_torch.probes.runner, allwave_tpu_torch.wfa.cuda_build as cb\n"
         "assert {'probe_forward', 'probe_step', 'probe_ops', 'probe_latency'} <= set(cb.SIGNATURES)\n"
-        "assert len(cb.SIGNATURES) == 11\n"
+        "assert len(cb.SIGNATURES) == 12\n"
         "assert not any(m == 'jax' or m.startswith('jax.') or m.startswith('allwave_tpu.') "
         "for m in sys.modules if sys.modules[m])\n"
     )

@@ -64,9 +64,10 @@ def test_native_resolves_to_repo_csrc():
 def _port_only_lines(src: str, device_defs):
     """Line numbers of the port's own code in a copy of a reference
     module: the module docstring; imports of torch and of the port's
-    `device`, `membership` and `telemetry` modules; the functions named in
-    `device_defs`; the gate (the assignments to `device` and `use_device`,
-    and of the `if use_device:` statement its header and its body, not
+    `device`, `device_sketch`, `membership` and `telemetry` modules; the
+    functions named in `device_defs`; the gate (the assignments to
+    `device` and `use_device`, and of the `if use_device:` statement
+    its header and its body, not
     its `else` branch, which is the reference's host routing); route
     counts (`*_routes.took(...)`); the `device` argument and
     `self.device` attribute; and the header of each `with` over the
@@ -84,7 +85,7 @@ def _port_only_lines(src: str, device_defs):
         if isinstance(node, ast.Import) and [a.name for a in node.names] == ["torch"]:
             spans.append((node.lineno, node.end_lineno))
         elif isinstance(node, ast.ImportFrom) and (node.module or "").split(".")[-1] in (
-            "device", "membership", "telemetry"
+            "device", "device_sketch", "membership", "telemetry"
         ):
             spans.append((node.lineno, node.end_lineno))
         elif isinstance(node, ast.FunctionDef) and node.name in device_defs:
